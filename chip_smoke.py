@@ -6,20 +6,33 @@
 Builds the CUDA kernels from the sources in the checkout, then runs, each
 phase printing one JSON line:
   1. device: card name, count, and nvidia-smi's name and power limit;
-  2. kernel: every kernel against its plain PyTorch twin, bit-equal, on
-     random inputs at the main path's shapes (peba1_128_t2_gen at B=8192 and
-     at a ragged B, ring_2048_gen at B=256), with CUDA-event times per step;
-  3. gate: keygen at peba1_128_t2_gen on the card, then a chain of serialized
-     AND(x, x) bootstraps at B=8192 (bench.py's measurement), decrypted;
-  4. auth: full-width PEBA1 authentication (nslots=128, bitsize=8, bound
-     256), a genuine and an impostor request in one Server.authenticate call;
-  5. the kernels line, then {"ok": true, "device": {...}} as the last line.
-Any failure exits non-zero before the last line.  With no CUDA device, or
-without the package beside it, it exits non-zero and prints no result.
+  2. build: every csrc/*.cu, one nvcc each, all at once;
+  3. kernel: every kernel against its plain PyTorch twin, bit-equal, on
+     seeded random inputs at the main paths' shapes, with CUDA-event times of
+     the kernel, of the twin and (for the GEMM kernels) of torch._int_mm on
+     the same product, and the bound of each case;
+  4. gate and auth at peba1_128_t2_gen (the first slice's path): keygen on
+     the card, a chain of serialized AND(x, x) bootstraps at B=8192
+     (bench.py's measurement), decrypted, then full-width PEBA1
+     authentication (nslots=128, bitsize=8, bound 256), a genuine and an
+     impostor request in one Server.authenticate call;
+  5. the same at peba1_128_fast_genf (one blind_rotate_gen_full launch per
+     bootstrap call), with the blind rotation bit-equal to the
+     cmux_step_gen path on the same key at B=8192 and the full n;
+  6. gate chains at peba1_128_t2 (cmux_step against bk_w), peba1_128_fast
+     (rotate_decompose and the float64 Toeplitz GEMM) and peba1_128_t2 with
+     use_pallas_extprod (rotate_decompose and extprod_recombine);
+  7. the kernels line, then {"ok": true, "device": {...}} as the last line.
+Every path's launch counts are set to 0 just before it runs and read just
+after.  Any failure exits non-zero before the last line.  With no CUDA
+device, or without the package beside it, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -29,8 +42,43 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SHAPES = (("peba1_128_t2_gen", 8192, 3), ("peba1_128_t2_gen", 1000, 3),
-                 ("ring_2048_gen", 256, 2))
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core ops, 2 per MAC
+MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
+# (kernel, preset, batch, steps): the shapes each kernel meets on its path.
+KERNEL_CASES = (
+    ("cmux_step_gen", "peba1_128_t2_gen", 8192, 3),
+    ("cmux_step_gen", "peba1_128_t2_gen", 1000, 3),
+    ("cmux_step_gen", "ring_2048_gen", 256, 2),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
+    ("blind_rotate_gen_full", "peba1_128_t2_genf", 8192, 8),
+    ("blind_rotate_gen_full", "peba1_128_t2_genf", 1000, 8),
+    ("rotate_decompose", "peba1_128_t2", 8192, 1),
+    ("rotate_decompose", "peba1_128_t2", 1000, 1),
+    ("rotate_decompose", "peba1_128_fast", 8192, 1),
+    ("rotate_decompose", "peba1_128_fast", 1000, 1),
+    ("cmux_step", "peba1_128_t2", 8192, 2),
+    ("cmux_step", "peba1_128_t2", 1000, 2),
+    ("cmux_step", "peba1_128_fast", 1000, 2),
+    ("extprod_recombine", "peba1_128_t2", 8192, 1),
+    ("extprod_recombine", "peba1_128_t2", 1000, 1),
+    ("extprod_recombine", "peba1_128_fast", 1000, 1),
+)
+STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step")
+# kernel -> (source, TPU kernel it replaces)
+KERNELS = {
+    "cmux_step_gen": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
+                      "peba1_tpu/ops/pallas_kernels.py:466"),
+    "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
+                              "peba1_tpu/ops/pallas_kernels.py:606"),
+    "rotate_decompose": ("peba1_tpu_torch/csrc/cmux_step.cu",
+                         "peba1_tpu/ops/pallas_kernels.py:659"),
+    "cmux_step": ("peba1_tpu_torch/csrc/cmux_step.cu",
+                  "peba1_tpu/ops/pallas_kernels.py:341"),
+    "extprod_recombine": ("peba1_tpu_torch/csrc/cmux_step.cu",
+                          "peba1_tpu/ops/pallas_kernels.py:265"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -52,6 +100,11 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def torch_is_cuda(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
+
+
 def event_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps calls, timed with CUDA events."""
     import torch
@@ -63,6 +116,24 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def free_device_memory() -> None:
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def reset_peak(device) -> None:
+    import torch
+    if torch_is_cuda(device):
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_gb(device) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(device) / 1e9 if torch_is_cuda(device) else 0.0
 
 
 def phase_device() -> dict:
@@ -79,54 +150,125 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     from peba1_tpu_torch.ops import cuda_kernels as ck
     t0 = time.time()
-    lib = ck.build()
-    ptxas = (lib.parent / "ptxas.txt")
-    info = [ln.strip() for ln in ptxas.read_text().splitlines()
-            if "registers" in ln or "spill" in ln] if ptxas.exists() else []
+    libs = ck.build()
+    info = {}
+    for stem, lib in libs.items():
+        ptxas = lib.parent / f"{stem}.ptxas.txt"
+        info[stem] = [ln.strip() for ln in ptxas.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln] if ptxas.exists() else []
     return {"phase": "build", "seconds": time.time() - t0, "ptxas": info}
 
 
-def kernel_case(params_name: str, B: int, steps: int, device, timed: bool,
-                seed: int = 0) -> dict:
-    """cmux_step_gen against its plain twin on random acc/amt/vv."""
+def _inputs(kernel: str, p, B: int, steps: int, device, seed: int):
+    """Seeded random inputs of `kernel` at p's shapes: (args, index of the
+    argument it updates in place or None, int8 MACs, bytes it must move,
+    the (B, G*N) x (G*N, C*N) GEMM of one step or None)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    k1, G, C = p.k + 1, (p.k + 1) * p.l, sum(p.limb_plan)
+    GN, CN = G * p.N, C * p.N
+
+    def i32(shape):
+        return torch.as_tensor(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                               .astype(np.int32), device=device)
+
+    def i8(shape, lo=-128, hi=128):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int8), device=device)
+
+    def rot(shape):
+        return torch.as_tensor(rng.integers(0, 2 * p.N, shape, dtype=np.int32), device=device)
+
+    acc_bytes = B * k1 * p.N * 4
+    macs = steps * B * GN * CN
+    if kernel == "cmux_step_gen":
+        args = (i32((B, k1 * p.N)), rot((steps, B)), i8((steps, G, C, 2 * p.N)), p)
+        nbytes = 2 * acc_bytes + args[1].nbytes + args[2].nbytes
+        return args, 0, macs, nbytes, (i8((B, GN)), i8((CN, GN)))
+    if kernel == "blind_rotate_gen_full":
+        args = (rot((steps + 1, B)), i8((steps, G, C, 2 * p.N)), MU, p)
+        return args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes, None
+    if kernel == "rotate_decompose":
+        args = (i32((B, k1 * p.N)), rot((B,)), p)
+        return args, None, 0, acc_bytes + args[1].nbytes + B * GN, None
+    if kernel == "cmux_step":
+        args = (i32((B, k1 * p.N)), rot((steps, B)), i8((steps, CN, GN)), p)
+        nbytes = 2 * acc_bytes + args[1].nbytes + args[2].nbytes
+        return args, 0, macs, nbytes, (i8((B, GN)), args[2][0])
+    if kernel == "extprod_recombine":
+        args = (i8((B, GN), -p.half_bg, p.half_bg), i8((CN, GN)), p)
+        return (args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes,
+                (args[0], args[1]))
+    raise ValueError(kernel)
+
+
+def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
+                timed: bool, seed: int = 0) -> dict:
+    """`kernel` against its plain twin on seeded random inputs; with `timed`,
+    CUDA-event times of the kernel, the twin and torch._int_mm on the GEMM of
+    one step, and the bound of the same work.  Step kernels report per CMUX
+    step."""
     import torch
     from peba1_tpu_torch.ops import cuda_kernels as ck
     from peba1_tpu_torch.params import PRESETS
     p = PRESETS[params_name]
-    G, C = (p.k + 1) * p.l, sum(p.limb_plan)
-    rng = np.random.default_rng(seed)
-    acc = torch.as_tensor(rng.integers(-2**31, 2**31, (B, (p.k + 1) * p.N),
-                                       dtype=np.int64).astype(np.int32), device=device)
-    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (steps, B), dtype=np.int32),
-                          device=device)
-    vv = torch.as_tensor(rng.integers(-128, 128, (steps, G, C, 2 * p.N),
-                                      dtype=np.int64).astype(np.int8), device=device)
-    want = ck.cmux_step_gen_plain(acc.clone(), amt, vv, p)
-    got = ck.cmux_step_gen(acc.clone(), amt, vv, p)
+    args, inplace, macs, nbytes, gemm = _inputs(kernel, p, B, steps, device, seed)
+    wrapper, plain = getattr(ck, kernel), getattr(ck, kernel + "_plain")
+
+    def call(fn, a=args):
+        a = list(a)
+        if inplace is not None:
+            a[inplace] = a[inplace].clone()
+        return fn(*a)
+
+    want = call(plain)
+    got = call(wrapper)
     sync(device)
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-    out = {"params": params_name, "B": B, "steps": steps,
+    per = steps if kernel in STEP_KERNELS else 1
+    out = {"kernel": kernel, "params": params_name, "B": B, "steps": steps,
+           "unit": "ms per CMUX step" if kernel in STEP_KERNELS else "ms per call",
            "mismatches": int((got != want).sum()), "max_abs_err": int(diff.max())}
     if timed:
-        buf = acc.clone()
-        out["ms_per_step"] = event_ms(lambda: ck.cmux_step_gen(buf, amt, vv, p), 3) / steps
-        out["plain_ms_per_step"] = event_ms(
-            lambda: ck.cmux_step_gen_plain(buf, amt, vv, p), 2) / steps
+        bufs = list(args)
+        if inplace is not None:
+            bufs[inplace] = bufs[inplace].clone()
+        out["ms"] = event_ms(lambda: wrapper(*bufs), 3) / per
+        out["plain_ms"] = event_ms(lambda: plain(*bufs), 2) / per
+        t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        out["bound_ms"] = max(t_ops, t_bytes) * 1e3 / per
+        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        out["library_ms"] = None
+        if gemm is not None:   # the GEMM alone, one step: torch._int_mm
+            a, wt = gemm
+            try:
+                out["library_ms"] = event_ms(lambda: torch._int_mm(a, wt.T), 3)
+            except RuntimeError as e:        # a yardstick only; the port never calls it
+                out["library_error"] = str(e).splitlines()[0][:200]
     return out
 
 
-def phase_kernel(device, shapes=KERNEL_SHAPES) -> dict:
-    cases = [kernel_case(name, B, steps, device, timed=torch_is_cuda(device))
-             for name, B, steps in shapes]
-    for c in cases:
-        check(c["mismatches"] == 0,
-              f"cmux_step_gen disagrees with its plain twin: {c}")
-    return {"phase": "kernel", "cases": cases}
+def phase_kernel(device, cases=KERNEL_CASES) -> dict:
+    out = [kernel_case(kernel, name, B, steps, device, timed=torch_is_cuda(device))
+           for kernel, name, B, steps in cases]
+    for c in out:
+        check(c["mismatches"] == 0, f"{c['kernel']} disagrees with its plain twin: {c}")
+    return {"phase": "kernel", "cases": out}
 
 
-def torch_is_cuda(device) -> bool:
-    import torch
-    return torch.device(device).type == "cuda"
+def expected_launches(p, calls: int) -> dict:
+    """The CUDA launches `calls` bootstrap calls at p make, by kernel."""
+    from peba1_tpu_torch.ops import cuda_kernels
+    want = dict.fromkeys(cuda_kernels.launches, 0)
+    if p.use_gen_full:
+        want["blind_rotate_gen_full"] = calls
+    elif p.use_gen_step:
+        want["cmux_step_gen"] = 2 * p.n * calls
+    elif p.use_fused_step:
+        want["cmux_step"] = 2 * p.n * calls
+    else:
+        want["rotate_decompose"] = p.n * calls if p.use_pallas_rotate else 0
+        want["extprod_recombine"] = p.n * calls if p.use_pallas_extprod else 0
+    return want
 
 
 def chain(ck, ct, steps: int):
@@ -139,12 +281,16 @@ def chain(ck, ct, steps: int):
     return ct
 
 
-def phase_gate(params_name: str, B: int, steps: int, device, seed: int = 0):
+def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = ""):
+    """Keygen at `params` (a preset name or TfheParams), a warm-up bootstrap,
+    then a chain of `steps` bootstraps of B bits, decrypted and counted."""
     import torch
     from peba1_tpu_torch import gates, keys
     from peba1_tpu_torch.ops import cuda_kernels
     from peba1_tpu_torch.params import PRESETS
-    p = PRESETS[params_name]
+    p = PRESETS[params] if isinstance(params, str) else params
+    label = label or params
+    reset_peak(device)
     t0 = time.time()
     sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(seed), p, device)
     sync(device)
@@ -159,21 +305,47 @@ def phase_gate(params_name: str, B: int, steps: int, device, seed: int = 0):
     out = chain(ck, ct, steps)
     sync(device)
     dt = time.time() - t0
-    launches = cuda_kernels.launches["cmux_step_gen"]
+    launches = dict(cuda_kernels.launches)
     got = gates.decrypt_bits(out, sk).cpu().numpy()
     frac = float((got == bits).mean())
-    check(frac == 1.0, f"gate chain decrypts {frac} correct, want 1.0")
-    if p.use_gen_step and torch_is_cuda(device):
-        check(launches == 2 * steps * p.n,     # two CUDA kernels a CMUX step
-              f"cmux_step_gen launched {launches} times")
-    return (sk, ck), {"phase": "gate", "params": params_name, "B": B,
+    check(frac == 1.0, f"{label}: gate chain decrypts {frac} correct, want 1.0")
+    if torch_is_cuda(device):
+        check(launches == expected_launches(p, steps),
+              f"{label}: launches {launches}, want {expected_launches(p, steps)}")
+    key_gb = sum(t.nbytes for t in (ck.bk_tp, ck.bk_w, ck.ks_table_limbs, ck.bk)
+                 if t is not None) / 1e9
+    return (sk, ck), {"phase": "gate", "params": label, "B": B,
                       "chain": steps, "keygen_seconds": t_keygen,
                       "seconds": dt, "bootstraps_per_s": steps * B / dt,
-                      "batch_correct_frac": frac,
-                      "cmux_step_gen_launches": launches}
+                      "batch_correct_frac": frac, "launches": launches,
+                      "key_gb": key_gb, "peak_gb": peak_gb(device)}
 
 
-def phase_auth(keyset, nslots: int, bitsize: int, device, seed: int = 0) -> dict:
+def phase_genf_equal(keyset, B: int, device, seed: int = 0) -> dict:
+    """The use_gen_full blind rotation against the use_gen_step one on the
+    same key and ciphertexts, at the full n: bit-equal accumulators."""
+    import torch
+    from peba1_tpu_torch import gates, lwe
+    from peba1_tpu_torch.ops import bootstrap as bs
+    from peba1_tpu_torch.ops import rotate
+    sk, ck = keyset
+    p = ck.params
+    bits = np.random.default_rng(seed + 5).integers(0, 2, B)
+    ct = gates.encrypt_bits(torch.Generator(device=device).manual_seed(seed + 6), sk, bits)
+    pre = lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8)
+    bara, barb = rotate.modswitch_2n(pre.a, p.N), rotate.modswitch_2n(pre.b, p.N)
+    full = bs.blind_rotate(ck, bara, barb, gates.MU_1_8)
+    step_key = dataclasses.replace(ck, params=dataclasses.replace(p, use_gen_full=False))
+    step = bs.blind_rotate(step_key, bara, barb, gates.MU_1_8)
+    sync(device)
+    mismatches = int((full != step).sum())
+    check(mismatches == 0, f"gen_full and gen_step rotations differ in {mismatches} places")
+    return {"phase": "gate_equal", "params": "peba1_128_fast_genf vs use_gen_step",
+            "B": B, "steps": p.n, "mismatches": mismatches}
+
+
+def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
+               seed: int = 0) -> dict:
     import torch
     from peba1_tpu_torch import clear
     from peba1_tpu_torch import circuits as cc
@@ -183,6 +355,7 @@ def phase_auth(keyset, nslots: int, bitsize: int, device, seed: int = 0) -> dict
     from peba1_tpu_torch.protocol import ClientDevice, Server
     from peba1_tpu_torch.utils.bits import int_to_bits
     sk, ck = keyset
+    reset_peak(device)
     bound = 2 * nslots
     proto = ProtocolParams(nslots=nslots, bitsize=bitsize, max_bitsize=3 * bitsize,
                            mul_width=3 * bitsize - 1, bound_match=bound)
@@ -219,23 +392,44 @@ def phase_auth(keyset, nslots: int, bitsize: int, device, seed: int = 0) -> dict
     res = server.authenticate(g_auth, enc_p, enc_t, enc_bound)
     sync(device)
     dt = time.time() - t0
-    launches = cuda_kernels.launches["cmux_step_gen"]
+    launches = dict(cuda_kernels.launches)
     b = client.decrypt_word(res.enc_b)
     y = client.prove(res.enc_y)
     want_y = np.where(want_b == 1, res.r1, (-res.r0) % (1 << bitsize))
     verdict = server.verify_proof(res, y)
-    out = {"phase": "auth", "nslots": nslots, "bitsize": bitsize, "bound": bound,
+    p = ck.params
+    out = {"phase": "auth", "params": label, "nslots": nslots, "bitsize": bitsize, "bound": bound,
            "requests": 2, "ed": ed, "b": b.tolist(), "want_b": want_b.tolist(),
            "y": y.tolist(), "want_y": want_y.tolist(),
            "is_match": verdict["is_match"].tolist(), "seconds": dt,
            "bootstraps": counter.bootstraps,
-           "bootstrap_launches": server.be.launches,
-           "cmux_step_gen_launches": launches}
+           "bootstrap_launches": server.be.launches, "launches": launches,
+           "peak_gb": peak_gb(device)}
     check(np.array_equal(b, want_b), f"decisions {b.tolist()} != {want_b.tolist()}")
     check(np.array_equal(y, want_y), f"y {y.tolist()} != {want_y.tolist()}")
-    if ck.params.use_gen_step and torch_is_cuda(device):
-        check(launches > 0, "the authentication launched no cmux_step_gen")
+    if torch_is_cuda(device):
+        want = expected_launches(p, server.be.launches)
+        check(launches == want and server.be.launches > 0,
+              f"the authentication launched {launches}, want {want}")
     return out
+
+
+def kernels_line(kernel: dict, main: dict) -> dict:
+    """One entry per kernel: its first (largest) case's numbers, the largest
+    error over all its cases, and its launches on its main path."""
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        cases = [c for c in kernel["cases"] if c["kernel"] == name]
+        first = cases[0]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": main[name][1],
+                     "launches_from": main[name][0],
+                     "max_abs_err": max(c["max_abs_err"] for c in cases),
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "library_ms": first["library_ms"],
+                     "case": {k: first[k] for k in ("params", "B", "steps", "unit")}})
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -246,6 +440,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from peba1_tpu_torch.ops import cuda_kernels  # noqa: F401
+        from peba1_tpu_torch.params import PEBA1_128_T2
     except ImportError as e:
         print(f"chip_smoke: the peba1_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -253,28 +448,65 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t_start = time.time()
+    main_path = {}      # kernel -> (phase that read its launches, count)
+
+    def path(label, launches, *kernels):
+        for k in kernels:
+            main_path[k] = (label, launches[k])
+
     try:
         emit(phase_device())
         emit(phase_build())
         kernel = phase_kernel(device)
         emit(kernel)
+
         keyset, gate = phase_gate("peba1_128_t2_gen", 8192, 3, device)
         emit(gate)
-        auth = phase_auth(keyset, 128, 8, device)
+        auth = phase_auth(keyset, 128, 8, device, "peba1_128_t2_gen")
         emit(auth)
+        path("auth peba1_128_t2_gen", auth["launches"], "cmux_step_gen")
+        del keyset
+        free_device_memory()
+
+        keyset, gate = phase_gate("peba1_128_fast_genf", 8192, 3, device)
+        emit(gate)
+        emit(phase_genf_equal(keyset, 8192, device))
+        auth = phase_auth(keyset, 128, 8, device, "peba1_128_fast_genf")
+        emit(auth)
+        path("auth peba1_128_fast_genf", auth["launches"], "blind_rotate_gen_full")
+        del keyset
+        free_device_memory()
+
+        keyset, gate = phase_gate("peba1_128_t2", 8192, 3, device)
+        emit(gate)
+        path("gate peba1_128_t2", gate["launches"], "cmux_step")
+        del keyset
+        free_device_memory()
+
+        keyset, gate = phase_gate("peba1_128_fast", 2048, 2, device)
+        emit(gate)
+        path("gate peba1_128_fast", gate["launches"], "rotate_decompose")
+        del keyset
+        free_device_memory()
+
+        extprod = dataclasses.replace(PEBA1_128_T2, use_fused_step=False,
+                                      use_pallas_extprod=True)
+        keyset, gate = phase_gate(extprod, 2048, 1, device,
+                                  label="peba1_128_t2 use_pallas_extprod")
+        emit(gate)
+        path("gate peba1_128_t2 use_pallas_extprod", gate["launches"], "extprod_recombine")
+        del keyset
+        free_device_memory()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     emit({"phase": "done", "seconds": time.time() - t_start})
-
-    t2 = kernel["cases"][0]
-    emit({"kernels": [{
-        "name": "cmux_step_gen", "route": "cuda",
-        "source": "peba1_tpu_torch/csrc/cmux_step_gen.cu",
-        "replaces": "peba1_tpu/ops/pallas_kernels.py:466",
-        "launches": auth["cmux_step_gen_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in kernel["cases"]),
-        "ms": t2["ms_per_step"], "plain_ms": t2["plain_ms_per_step"]}]})
+    for name, (label, n) in main_path.items():
+        if n <= 0:
+            print(f"chip_smoke: FAILED: {name} launched {n} times in {label}",
+                  file=sys.stderr)
+            return 1
+    emit(kernels_line(kernel, main_path))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,22 +1,25 @@
-// One CMUX step of blind rotation, with the step's negacyclic Toeplitz
-// weights formed on the fly from the small doubled generator, for Hopper
-// (sm_90a).  Built by peba1_tpu_torch/ops/cuda_kernels.py with nvcc into a
-// shared library with a plain C interface, bound with ctypes.
+// CMUX steps of blind rotation with each step's negacyclic Toeplitz weights
+// formed on the fly from the small doubled generator, for Hopper (sm_90a).
+// Built by peba1_tpu_torch/ops/cuda_kernels.py with nvcc into a shared
+// library with a plain C interface, bound with ctypes.  Two entry points:
 //
-// Replaces peba1_tpu/ops/pallas_kernels.py cmux_step_gen
+// peba1_cmux_step_gen replaces peba1_tpu/ops/pallas_kernels.py cmux_step_gen
 // (_cmux_step_gen_kernel): for every batch row b and output polynomial o,
 //   acc[b, o] += sum_m (sum_{g,t} d[b,g,t] * vv[g, c0(o)+m, N-t+j]) << (8(4-nl)+8m)
-// where d are the gadget digits of X^amt[b]*acc[b] - acc[b].  All arithmetic
-// on torus values is uint32 (signed overflow is undefined in C++); the int8
+// where d are the gadget digits of X^amt[b]*acc[b] - acc[b].  The int8
 // products accumulate exactly in int32 because TfheParams bounds
 // (k+1)*l*N*128*128 < 2^31.
 //
-// What bounds it: the int8 GEMM, (B, G*N) x (G*N, C*N) per step
+// peba1_blind_rotate_gen_full replaces pallas_kernels.blind_rotate_gen_full
+// (_gen_full_kernel): acc = [0 | X^amt0 * mu], then all n steps above, in one
+// launch.
+//
+// What bounds a step: the int8 GEMM, (B, G*N) x (G*N, C*N)
 // ((B,3072)x(3072,5632) at peba1_128_t2_gen), run on the tensor cores with
 // mma.sync.m16n8k32.s8.  The TPU kernel stages the whole assembled weight
-// matrix (7.6 MB at t2) in VMEM; an SM has 227 KB.  So each CTA owns a tile
-// of BM batch rows x one output polynomial x BN coefficients and keeps only
-// the generator rows of that polynomial's nl limb columns, for one digit
+// matrix (7.6 MB at t2) in VMEM; an SM has 227 KB.  So each GEMM tile is BM
+// batch rows x one output polynomial x BN coefficients and keeps only the
+// generator rows of that polynomial's nl limb columns, for one digit
 // polynomial g at a time, in shared memory (N+BN bytes per limb), with the
 // nl limb accumulators in registers.  W is never formed anywhere.
 //
@@ -27,80 +30,39 @@
 // byte-shifted copies so each B fragment register is one aligned 32-bit
 // shared-memory load.
 //
-// Aliasing: a step is two launches.  The first writes all digits of acc to a
-// scratch buffer; the second reads digits and writes acc.  No acc element is
-// written before every digit has been produced (the contract of
-// pallas_kernels.py:442-445).  The host loop over the n steps runs here, so
-// a bootstrap is one ctypes call.
+// Aliasing: no acc element is written before every digit of the step has
+// been produced (the contract of pallas_kernels.py:442-445).  In
+// peba1_cmux_step_gen a step is two launches, digits to a scratch buffer,
+// then the GEMM that adds into acc; the host loop over the steps runs here,
+// so a bootstrap is one ctypes call.  In the whole-rotation kernel the grid
+// is persistent and cooperative (every block resident at once): each step is
+// a digit phase over all (row, polynomial) pairs, a grid barrier, a GEMM
+// phase over all tiles, and a second grid barrier, because step s+1's
+// rotation of row b reads all (k+1)N coefficients of acc[b], which many
+// blocks write in step s.  The generator key (36-43 MB) streams from HBM/L2.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace peba1;
 
 namespace {
 
-constexpr int BM = 64;             // batch rows per CTA
-constexpr int BN = 64;             // output coefficients per CTA
-constexpr int BK = 64;             // digit coefficients per shared-memory stage
-constexpr int A_STRIDE = BK + 16;  // 80-byte rows: fragment loads hit 32 banks
-constexpr int THREADS = 128;       // 4 warps, 2 x 2 over the 64 x 64 tile
-constexpr int MAX_LIMBS = 4;
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Launch 1: rotate + difference + gadget decomposition.  One block per
-// (batch row b, polynomial u).  digits[b, (u*l+q)*N + (N-1-t)] is digit q of
-// (X^amt[b] * acc[b,u])[t] - acc[b,u][t].
-__global__ void rotate_decompose_kernel(const uint32_t* __restrict__ acc,
-                                        const int32_t* __restrict__ amt,
-                                        int8_t* __restrict__ digits, int N,
-                                        int k1, int l, int bgbit,
-                                        uint32_t offset) {
-  extern __shared__ uint32_t row[];
-  const int b = blockIdx.x, u = blockIdx.y;
-  const uint32_t* src = acc + ((size_t)b * k1 + u) * N;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) row[t] = src[t];
-  __syncthreads();
-  const uint32_t a = (uint32_t)amt[b];
-  const uint32_t bg_mask = (1u << bgbit) - 1u;
-  const int half_bg = 1 << (bgbit - 1);
-  int8_t* dst = digits + (size_t)b * k1 * l * N;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    // (X^a p)[t] = p[i] if i < N else -p[i-N], with i = (t - a) mod 2N.
-    const uint32_t i = ((uint32_t)t - a) & (uint32_t)(2 * N - 1);
-    const uint32_t rot = i < (uint32_t)N ? row[i] : 0u - row[i - N];
-    const uint32_t v = rot - row[t] + offset;
-    for (int q = 0; q < l; ++q) {
-      const int d = (int)((v >> (32 - (q + 1) * bgbit)) & bg_mask) - half_bg;
-      dst[(size_t)(u * l + q) * N + (N - 1 - t)] = (int8_t)d;
-    }
-  }
-}
-
-// Launch 2, one CTA: rows [m0, m0+BM) x output polynomial o x coefficients
-// [j0, j0+BN), all NL limb columns of o at once.
-template <int NL>
-__device__ __forceinline__ void gemm_tile(uint32_t* __restrict__ acc,
-                                          const int8_t* __restrict__ digits,
-                                          const int8_t* __restrict__ vv, int B,
-                                          int N, int G, int C, int c0, int o,
-                                          int k1, int8_t* a_s, int8_t* gen_s,
-                                          int gen_stride) {
+// One GEMM tile against the generator: rows [m0, m0+BM) x output polynomial
+// o x coefficients [j0, j0+BN), all NL limb columns of o at once, added into
+// acc.  digits are in reversed coefficient order.  SHARED: other blocks of
+// the launch write acc and the digits (common.cuh).
+template <int NL, bool SHARED>
+__device__ __forceinline__ void gen_gemm_tile(uint32_t* acc, const int8_t* digits,
+                                              const int8_t* vv, int B, int N,
+                                              int G, int C, int c0, int o, int k1,
+                                              int m0, int j0, int8_t* a_s,
+                                              int8_t* gen_s, int gen_stride) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, tig = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
-  const int j0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
   const int GN = G * N;
   const int two_n = 2 * N;
   const int gen_len = N + BN + 4;
@@ -119,14 +81,14 @@ __device__ __forceinline__ void gemm_tile(uint32_t* __restrict__ acc,
         for (int i = 0; i < 4; ++i) accum[m][mt][nt][i] = 0;
 
   for (int g = 0; g < G; ++g) {
-    __syncthreads();  // every warp is done reading the previous g's rows
+    __syncthreads();  // every warp is done reading the previous rows
     for (int m = 0; m < NL; ++m) {
       const int8_t* src = vv + ((size_t)g * C + c0 + m) * two_n;
       int8_t* dst = gen_s + m * 4 * gen_stride;
       for (int idx = tid; idx < 4 * gen_len; idx += THREADS) {
         const int r = idx / gen_len, x = idx - r * gen_len;
         const int pos = 1 + j0 + x + r;
-        dst[r * gen_stride + x] = pos < two_n ? src[pos] : (int8_t)0;
+        dst[r * gen_stride + x] = pos < two_n ? __ldg(src + pos) : (int8_t)0;
       }
     }
     for (int k0 = 0; k0 < N; k0 += BK) {
@@ -135,8 +97,8 @@ __device__ __forceinline__ void gemm_tile(uint32_t* __restrict__ acc,
         const int row = m0 + r;
         int4 v = make_int4(0, 0, 0, 0);
         if (row < B)
-          v = *reinterpret_cast<const int4*>(digits + (size_t)row * GN +
-                                             g * N + k0 + chunk * 16);
+          v = load<SHARED>(reinterpret_cast<const int4*>(digits + (size_t)row * GN +
+                                                         g * N + k0 + chunk * 16));
         *reinterpret_cast<int4*>(a_s + r * A_STRIDE + chunk * 16) = v;
       }
       __syncthreads();
@@ -168,47 +130,103 @@ __device__ __forceinline__ void gemm_tile(uint32_t* __restrict__ acc,
       __syncthreads();
     }
   }
-
-  // Epilogue: recombine the limbs and add into acc (uint32 wrap-around).
-  const int shift0 = 8 * (4 - NL);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + wm * 32 + mt * 16 + grp + (i >> 1) * 8;
-        const int col = j0 + wn * 32 + nt * 8 + tig * 2 + (i & 1);
-        if (row < B) {
-          uint32_t delta = 0;
-#pragma unroll
-          for (int m = 0; m < NL; ++m)
-            delta += (uint32_t)accum[m][mt][nt][i] << (shift0 + 8 * m);
-          acc[((size_t)row * k1 + o) * N + col] += delta;
-        }
-      }
+  store_tile<NL, true, SHARED>(acc, accum, B, N, k1, o, m0, j0);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    extprod_gen_kernel(uint32_t* __restrict__ acc,
-                       const int8_t* __restrict__ digits,
-                       const int8_t* __restrict__ vv, int B, int N, int k,
-                       int l, int mask_limbs, int body_limbs, int gen_stride) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* a_s = smem;
-  int8_t* gen_s = smem + BM * A_STRIDE;
-  const int o = blockIdx.z;  // k mask polynomials, then the body
+// The tile of output polynomial o with its limb count as a template argument.
+template <bool SHARED>
+__device__ __forceinline__ void gen_gemm_tile_any(uint32_t* acc, const int8_t* digits,
+                                                  const int8_t* vv, int B, int N, int k,
+                                                  int l, int mask_limbs, int body_limbs,
+                                                  int o, int m0, int j0, int8_t* smem,
+                                                  int gen_stride) {
   const int nl = o < k ? mask_limbs : body_limbs;
   const int c0 = o * mask_limbs;  // limb columns are output-major
   const int C = k * mask_limbs + body_limbs;
   const int G = (k + 1) * l;
+  int8_t* a_s = smem;
+  int8_t* gen_s = smem + BM * A_STRIDE;
   switch (nl) {
-    case 1: gemm_tile<1>(acc, digits, vv, B, N, G, C, c0, o, k + 1, a_s, gen_s, gen_stride); break;
-    case 2: gemm_tile<2>(acc, digits, vv, B, N, G, C, c0, o, k + 1, a_s, gen_s, gen_stride); break;
-    case 3: gemm_tile<3>(acc, digits, vv, B, N, G, C, c0, o, k + 1, a_s, gen_s, gen_stride); break;
-    default: gemm_tile<4>(acc, digits, vv, B, N, G, C, c0, o, k + 1, a_s, gen_s, gen_stride); break;
+    case 1: gen_gemm_tile<1, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    case 2: gen_gemm_tile<2, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    case 3: gen_gemm_tile<3, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    default: gen_gemm_tile<4, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
   }
 }
+
+// Launch 1 of a step: one block per (batch row b, polynomial u).
+__global__ void rotate_decompose_kernel(const uint32_t* acc, const int32_t* __restrict__ amt,
+                                        int8_t* digits, int N, int k1, int l,
+                                        int bgbit, uint32_t offset) {
+  extern __shared__ uint32_t row[];
+  rotate_decompose_row<false, false>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
+                              blockIdx.y, N, k1, l, bgbit, offset, row);
+}
+
+// Launch 2 of a step: grid (N/BN, ceil(B/BM), k+1).
+__global__ void __launch_bounds__(THREADS)
+    extprod_gen_kernel(uint32_t* acc, const int8_t* digits,
+                       const int8_t* __restrict__ vv, int B, int N, int k,
+                       int l, int mask_limbs, int body_limbs, int gen_stride) {
+  extern __shared__ __align__(16) int8_t smem[];
+  gen_gemm_tile_any<false>(acc, digits, vv, B, N, k, l, mask_limbs, body_limbs,
+                           blockIdx.z, blockIdx.y * BM, blockIdx.x * BN, smem, gen_stride);
+}
+
+// The whole rotation, one persistent cooperative grid.  amt is (n_steps+1, B):
+// row 0 the initial body rotation, row s+1 step s's rotation.
+__global__ void __launch_bounds__(THREADS)
+    blind_rotate_gen_full_kernel(uint32_t* acc, const int32_t* __restrict__ amt,
+                                 const int8_t* __restrict__ vv, int8_t* digits,
+                                 int B, int n_steps, int N, int k, int l, int bgbit,
+                                 uint32_t offset, int mask_limbs, int body_limbs,
+                                 int gen_stride, uint32_t mu) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) int8_t smem[];
+  const int k1 = k + 1, G = k1 * l, C = k * mask_limbs + body_limbs;
+
+  // acc = [0 | X^amt0 * (mu, ..., mu)]
+  const size_t acc_len = (size_t)B * k1 * N;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < acc_len;
+       idx += stride) {
+    const int t = (int)(idx % N);
+    const size_t bu = idx / N;
+    uint32_t v = 0;
+    if ((int)(bu % k1) == k) {
+      const uint32_t i = ((uint32_t)t - (uint32_t)amt[bu / k1]) & (uint32_t)(2 * N - 1);
+      v = i < (uint32_t)N ? mu : 0u - mu;
+    }
+    __stcg(acc + idx, v);
+  }
+  grid.sync();
+
+  const int tiles_j = N / BN, tiles_m = (B + BM - 1) / BM;
+  const int n_tiles = tiles_j * tiles_m * k1;
+  const size_t vv_step = (size_t)G * C * 2 * N;
+  for (int s = 0; s < n_steps; ++s) {
+    const int32_t* amt_s = amt + (size_t)(s + 1) * B;
+    for (int item = blockIdx.x; item < B * k1; item += gridDim.x) {
+      const int b = item / k1;
+      rotate_decompose_row<false, true>(acc, (uint32_t)amt_s[b], digits, b, item - b * k1,
+                                        N, k1, l, bgbit, offset,
+                                        reinterpret_cast<uint32_t*>(smem));
+      __syncthreads();  // smem is free for the block's next row
+    }
+    grid.sync();  // every digit of the step exists before any acc write
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int jt = tile % tiles_j, rest = tile / tiles_j;
+      gen_gemm_tile_any<true>(acc, digits, vv + s * vv_step, B, N, k, l, mask_limbs,
+                              body_limbs, rest / tiles_m, (rest % tiles_m) * BM, jt * BN,
+                              smem, gen_stride);
+    }
+    grid.sync();  // every acc write of the step lands before the next reads
+  }
+}
+
+int gen_stride_for(int N) { return ((N + BN + 4 + 127) / 128) * 128 + 32; }
+
+int gemm_smem(int N) { return BM * A_STRIDE + MAX_LIMBS * 4 * gen_stride_for(N); }
 
 }  // namespace
 
@@ -222,8 +240,8 @@ extern "C" int peba1_cmux_step_gen(void* acc, const void* amt, const void* vv,
                                    int body_limbs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int k1 = k + 1, G = k1 * l, C = k * mask_limbs + body_limbs;
-  const int gen_stride = ((N + BN + 4 + 127) / 128) * 128 + 32;
-  const int smem = BM * A_STRIDE + MAX_LIMBS * 4 * gen_stride;
+  const int gen_stride = gen_stride_for(N);
+  const int smem = gemm_smem(N);
   cudaError_t err = cudaFuncSetAttribute(
       extprod_gen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -241,5 +259,48 @@ extern "C" int peba1_cmux_step_gen(void* acc, const void* amt, const void* vv,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return (int)cudaGetLastError();
+}
+
+// The whole blind rotation in one cooperative launch: acc (B, (k+1)*N) int32
+// is written (not read) as [0 | X^amt[0] * mu], then n_steps CMUX steps run on
+// it.  amt is (n_steps+1, B) int32, vv is (n_steps, G, C, 2N) int8, digits is
+// (B, G*N) int8 scratch.  The grid is the number of blocks that fit on the
+// card at once (occupancy x SMs), capped by the work.  Requires N % 64 == 0.
+extern "C" int peba1_blind_rotate_gen_full(void* acc, const void* amt, const void* vv,
+                                           void* digits, int B, int n_steps, int N,
+                                           int k, int l, int bgbit,
+                                           unsigned int offset, int mask_limbs,
+                                           int body_limbs, unsigned int mu,
+                                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int k1 = k + 1;
+  int gen_stride = gen_stride_for(N);
+  const int smem = gemm_smem(N) > N * 4 ? gemm_smem(N) : N * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_gen_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, blind_rotate_gen_full_kernel, THREADS, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int n_tiles = (N / BN) * ((B + BM - 1) / BM) * k1;
+  const int work = n_tiles > B * k1 ? n_tiles : B * k1;
+  const int grid = per_sm * sms < work ? per_sm * sms : work;
+
+  uint32_t* acc_p = static_cast<uint32_t*>(acc);
+  const int32_t* amt_p = static_cast<const int32_t*>(amt);
+  const int8_t* vv_p = static_cast<const int8_t*>(vv);
+  int8_t* digits_p = static_cast<int8_t*>(digits);
+  uint32_t offset_v = offset, mu_v = mu;
+  void* args[] = {&acc_p, &amt_p, &vv_p, &digits_p, &B, &n_steps, &N, &k, &l,
+                  &bgbit, &offset_v, &mask_limbs, &body_limbs, &gen_stride, &mu_v};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(blind_rotate_gen_full_kernel),
+                                    dim3(grid), dim3(THREADS), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

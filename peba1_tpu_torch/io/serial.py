@@ -4,6 +4,9 @@ The same npz format (``FORMAT_VERSION`` 1): the tensors plus a params JSON
 member, so keys round-trip between the two packages.  A cloud key saved here
 carries ``bk`` and ``bk_conv`` as well, because the JAX package's loader
 reads them; the port itself reads only ``bk_tp`` and ``ks_table_limbs``.
+Neither package stores ``bk_w``: on load it is rebuilt from ``bk_tp`` where
+``keys.need_w`` holds (``keys.cloud_key_from_numpy``), as
+``peba1_tpu.io.serial`` does.
 """
 
 from __future__ import annotations

@@ -8,11 +8,13 @@ Counterpart of ``peba1_tpu/ops/bootstrap.py``:
   4. sample extract;
   5. key switch as one digit-valued matmul.
 
-Exact integer arithmetic throughout.  Step 3 is
-``ops/cuda_kernels.cmux_step_gen`` for the ``use_gen_step`` presets (the
-hand-written kernel on the card, its plain twin on the CPU); every other
-preset runs the plain twin (the JAX package's plain toeplitz scan), which on
-the card is allowed only where the JAX package itself used no Pallas kernel.
+Exact integer arithmetic throughout.  Step 3 follows the JAX package's
+branch order (peba1_tpu/ops/bootstrap.py:69-174) on every device, each
+branch through the wrapper in ``ops/cuda_kernels.py`` of the TPU kernel that
+the JAX branch calls: the hand-written kernel on the card, its plain twin on
+the CPU.  The one unported kernel, ``fused_blind_rotate`` (``use_fused_cmux``),
+raises on the card; on the CPU those parameters run the plain scan, whose
+bits the JAX package's tests/test_fused.py proves equal to it.
 """
 
 from __future__ import annotations
@@ -27,26 +29,13 @@ from . import cuda_kernels, poly, rotate
 
 def unported_kernel(p: TfheParams) -> str | None:
     """The TPU kernel that `p`'s blind rotation selects and that has no CUDA
-    port yet, in the JAX package's branch order
-    (peba1_tpu/ops/bootstrap.py:69-171); None when it needs none."""
-    if p.use_fused_cmux:
-        return "fused_blind_rotate"
-    if p.use_gen_full:
-        return "blind_rotate_gen_full"
-    if p.use_gen_step:
-        return None
-    if p.use_fused_step:
-        return "cmux_step"
-    if p.use_pallas_extprod:
-        return "extprod_recombine"
-    if p.use_pallas_rotate:
-        return "rotate_decompose"
-    return None
+    port yet (the JAX package's first branch, peba1_tpu/ops/bootstrap.py:69);
+    None when it needs none."""
+    return "fused_blind_rotate" if p.use_fused_cmux else None
 
 
 def _check_ported(p: TfheParams, device: torch.device) -> None:
-    """On the card, raise for a preset whose path needs an unported kernel.
-    On the CPU every preset runs the plain path."""
+    """On the card, raise for parameters whose path needs an unported kernel."""
     kernel = unported_kernel(p)
     if device.type != "cpu" and kernel is not None:
         raise NotImplementedError(
@@ -63,12 +52,37 @@ def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.T
     p = ck.params
     _check_ported(p, bara.device)
     B = bara.shape[0]
-    acc = torch.zeros((B, p.k + 1, p.N), dtype=torch.int32, device=bara.device)
-    tv = torch.full((B, p.N), mu, dtype=torch.int32, device=bara.device)
-    acc[:, p.k] = rotate.negacyclic_rotate(tv, (2 * p.N - barb) % (2 * p.N))
-    steps = (cuda_kernels.cmux_step_gen if p.use_gen_step
-             else cuda_kernels.cmux_step_gen_plain)
-    steps(acc.view(B, -1), bara.T.contiguous(), ck.bk_tp, p)   # in place
+    amt0 = (2 * p.N - barb) % (2 * p.N)
+    amt = bara.T.contiguous()                          # (n, B), step-major
+    if p.use_gen_full:
+        amt_all = torch.cat([amt0[None].to(torch.int32), amt])
+        acc_flat = cuda_kernels.blind_rotate_gen_full(amt_all, ck.bk_tp, mu, p)
+        return acc_flat.view(B, p.k + 1, p.N)
+
+    acc_flat = rotate.initial_accumulator(amt0, mu, p)
+    acc = acc_flat.view(B, p.k + 1, p.N)
+    if p.use_gen_step:
+        cuda_kernels.cmux_step_gen(acc_flat, amt, ck.bk_tp, p)     # in place
+        return acc
+    if p.use_fused_step:
+        if p.w_streaming:
+            # This step's W built from the generator outside the kernel, as
+            # the JAX package builds it in the graph (one step at a time).
+            for s in range(p.n):
+                w = poly.toeplitz_weights(ck.bk_tp[s])[None]
+                cuda_kernels.cmux_step(acc_flat, amt[s:s + 1], w, p)
+        else:
+            cuda_kernels.cmux_step(acc_flat, amt, ck.bk_w, p)
+        return acc
+
+    rotate_decompose = (cuda_kernels.rotate_decompose if p.use_pallas_rotate
+                        else cuda_kernels.rotate_decompose_plain)
+    for s in range(p.n):
+        d = rotate_decompose(acc_flat, amt[s], p)                   # (B, G*N)
+        if p.use_pallas_extprod:
+            acc_flat += cuda_kernels.extprod_recombine(d, ck.bk_w[s], p)
+        else:
+            acc += poly.extprod_toeplitz_i8(d.view(B, -1, p.N), ck.bk_tp[s], p.limb_plan)
     return acc
 
 

@@ -1,18 +1,28 @@
 """Hand-written CUDA kernels for Hopper, their build, binding and plain twins.
 
-`cmux_step_gen` replaces ``peba1_tpu/ops/pallas_kernels.py`` cmux_step_gen:
-whole CMUX steps of blind rotation with the Toeplitz weights formed on the
-fly from the generator key ``bk_tp``.  The source is ``csrc/cmux_step_gen.cu``
-(design notes there).
+Five wrappers, each replacing one kernel of ``peba1_tpu/ops/pallas_kernels.py``
+of the same name:
 
-On a CPU tensor the wrapper runs `cmux_step_gen_plain`, the plain PyTorch
-version of the same steps.  On a CUDA tensor it launches the kernel or
-raises; it never falls back.  The library is built with ``nvcc`` for
-``sm_90a`` at first use, into the package's own ``build/`` directory (so a
-checkout and an installed copy each build beside their sources; git ignores
-it), and bound with ctypes.  ``launches`` counts the CUDA kernel launches the
-wrapper makes: two per CMUX step, ``rotate_decompose_kernel`` then
-``extprod_gen_kernel``.
+  * `cmux_step_gen`: whole CMUX steps with the Toeplitz weights formed on the
+    fly from the generator key ``bk_tp`` (``csrc/cmux_step_gen.cu``);
+  * `blind_rotate_gen_full`: the whole blind rotation, accumulator set-up and
+    all n such steps, in one launch (``csrc/cmux_step_gen.cu``);
+  * `rotate_decompose`: rotate, difference and gadget digits in natural
+    coefficient order (``csrc/cmux_step.cu``);
+  * `extprod_recombine`: digits times one step's precomputed weights W, limb
+    recombination as the epilogue (``csrc/cmux_step.cu``);
+  * `cmux_step`: CMUX steps against precomputed W, the product added into the
+    accumulator (``csrc/cmux_step.cu``).
+
+Design notes are in the sources.  On a CPU tensor a wrapper runs its plain
+twin (``*_plain``, the same signature and result in plain PyTorch).  On a
+CUDA tensor it launches the kernel or raises; it never falls back.  Every
+``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first use into its
+own shared library, all at once, under the package's ``build/`` directory
+(keyed by one hash of every source and the flags; git ignores it), and bound
+with ctypes.  ``launches`` counts the CUDA kernel launches each wrapper makes:
+two per CMUX step for `cmux_step_gen` and `cmux_step`, one per call for the
+other three.
 """
 
 from __future__ import annotations
@@ -31,13 +41,25 @@ from ..params import TfheParams
 from . import decompose as dec
 from . import poly, rotate
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cmux_step_gen.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {"cmux_step_gen": 0}
-_lib = None
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# C entry point -> (library, argument types); every one returns a CUDA error.
+_ENTRIES = {
+    "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
+    "peba1_blind_rotate_gen_full": ("cmux_step_gen",
+                                    [_P] * 4 + [_I] * 6 + [_U, _I, _I, _U, _P]),
+    "peba1_rotate_decompose": ("cmux_step", [_P] * 3 + [_I] * 5 + [_U, _P]),
+    "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 6 + [_P]),
+    "peba1_cmux_step": ("cmux_step", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
+}
+
+launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
+            "extprod_recombine": 0, "cmux_step": 0}
+_fns: dict = {}
 
 
 def reset_launches() -> None:
@@ -52,59 +74,89 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernel library (cached by the source's hash); returns its
-    path.  nvcc's -Xptxas -v report is kept beside it as ``ptxas.txt``."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"cmux_step_gen-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True, check=False)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        (BUILD_DIR / "ptxas.txt").write_text(res.stderr)
-        os.replace(tmp, out)
-    finally:
+def build() -> "dict[str, Path]":
+    """Compile every ``csrc/*.cu`` into its own shared library, one nvcc per
+    source, all started together; cached under one hash of every source,
+    header and flag.  Returns {source stem: library path}.  nvcc's
+    ``-Xptxas -v`` report is kept beside each library as ``<stem>.ptxas.txt``."""
+    tag = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        tag.update(path.name.encode() + path.read_bytes())
+    out_dir = BUILD_DIR / tag.hexdigest()[:12]
+    libs = {src.stem: out_dir / f"{src.stem}.so" for src in sorted(CSRC.glob("*.cu"))}
+    if all(lib.exists() for lib in libs.values()):
+        return libs
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    for stem in libs:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        jobs[stem] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for stem, (tmp, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode == 0:
+            (out_dir / f"{stem}.ptxas.txt").write_text(err)
+            os.replace(tmp, libs[stem])
+        else:
+            failed.append(f"{stem}.cu: nvcc failed ({proc.returncode}):\n{err}")
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.peba1_cmux_step_gen
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _fn(name: str):
+    if not _fns:
+        libs = {stem: ctypes.CDLL(str(path)) for stem, path in build().items()}
+        for entry, (stem, argtypes) in _ENTRIES.items():
+            fn = getattr(libs[stem], entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _fns[entry] = fn
+    return _fns[name]
 
 
-def _check(acc_flat, amt, vv, p: TfheParams) -> None:
-    G, C = (p.k + 1) * p.l, sum(p.limb_plan)
-    B = acc_flat.shape[0]
-    S = amt.shape[0]
-    want = {"acc_flat": (acc_flat, torch.int32, (B, (p.k + 1) * p.N)),
-            "amt": (amt, torch.int32, (S, B)),
-            "vv": (vv, torch.int8, (S, G, C, 2 * p.N))}
+def _launch(entry: str, device: torch.device, *args) -> None:
+    """Call a C entry point on `device`'s current stream; raise on its error."""
+    with torch.cuda.device(device):
+        err = _fn(entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+
+
+def _check(kernel: str, p: TfheParams, **want) -> torch.device:
+    """Each keyword is (tensor, dtype, shape); all on one device, contiguous.
+    Returns the device.  On a non-CPU device, also what every kernel needs."""
+    device = next(iter(want.values()))[0].device
     for name, (x, dtype, shape) in want.items():
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"cmux_step_gen: {name} must be {dtype} of shape "
-                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} must be {dtype} of shape "
+                             f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
-            raise ValueError(f"cmux_step_gen: {name} must be contiguous")
-        if x.device != acc_flat.device:
-            raise ValueError(f"cmux_step_gen: {name} is on {x.device}, "
-                             f"acc_flat on {acc_flat.device}")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if x.device != device:
+            raise ValueError(f"{kernel}: {name} is on {x.device}, not {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: no kernel for {device}")
+    if device.type == "cuda" and p.N % 64:
+        raise ValueError(f"{kernel} kernel needs N % 64 == 0, got N={p.N}")
+    return device
 
+
+def _sizes(p: TfheParams) -> "tuple[int, int, int]":
+    """(k+1, G = (k+1)l, C = sum of the limb plan)."""
+    return p.k + 1, (p.k + 1) * p.l, sum(p.limb_plan)
+
+
+def _step_args(p: TfheParams) -> tuple:
+    return (p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p), p.bk_limbs, p.bk_body_limbs)
+
+
+# --- cmux_step_gen ---------------------------------------------------------
 
 def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
                   params: TfheParams) -> torch.Tensor:
@@ -116,27 +168,19 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
     ``peba1_tpu.ops.pallas_kernels.cmux_step_gen`` does.
     """
     p = params
-    _check(acc_flat, amt, vv, p)
-    if acc_flat.device.type == "cpu":
-        return cmux_step_gen_plain(acc_flat, amt, vv, p)
-    if acc_flat.device.type != "cuda":
-        raise ValueError(f"cmux_step_gen: no kernel for {acc_flat.device}")
-    if p.N % 64:
-        raise ValueError(f"cmux_step_gen kernel needs N % 64 == 0, got N={p.N}")
+    k1, G, C = _sizes(p)
     B, S = acc_flat.shape[0], amt.shape[0]
+    device = _check("cmux_step_gen", p, acc_flat=(acc_flat, torch.int32, (B, k1 * p.N)),
+                    amt=(amt, torch.int32, (S, B)),
+                    vv=(vv, torch.int8, (S, G, C, 2 * p.N)))
+    if device.type == "cpu":
+        return cmux_step_gen_plain(acc_flat, amt, vv, p)
     if B == 0 or S == 0:
         return acc_flat
-    lib = _load()
-    G = (p.k + 1) * p.l
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=acc_flat.device)
-    with torch.cuda.device(acc_flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.peba1_cmux_step_gen(
-            acc_flat.data_ptr(), amt.data_ptr(), vv.data_ptr(), digits.data_ptr(),
-            B, S, p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p),
-            p.bk_limbs, p.bk_body_limbs, stream)
-    if err != 0:
-        raise RuntimeError(f"cmux_step_gen: CUDA error {err} at launch")
+    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    N, k, l, bgbit, off, ml, bl = _step_args(p)
+    _launch("peba1_cmux_step_gen", device, acc_flat.data_ptr(), amt.data_ptr(),
+            vv.data_ptr(), digits.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl)
     launches["cmux_step_gen"] += 2 * S      # two CUDA kernels a step
     return acc_flat
 
@@ -144,13 +188,164 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
 def cmux_step_gen_plain(acc_flat: torch.Tensor, amt: torch.Tensor,
                         vv: torch.Tensor, params: TfheParams) -> torch.Tensor:
     """The plain PyTorch twin of `cmux_step_gen`, same signature and effect:
-    rotate, decompose, `poly.extprod_toeplitz_i8`, then add, per step."""
+    `rotate_decompose_plain`, `poly.extprod_toeplitz_i8`, then add, per step."""
     p = params
     B = acc_flat.shape[0]
     acc = acc_flat.view(B, p.k + 1, p.N)
     for s in range(amt.shape[0]):
-        rot = rotate.negacyclic_rotate(acc, amt[s][:, None])
-        d = dec.decompose(rot - acc, p)                   # (B, k+1, N, l)
-        d = d.movedim(-1, -2).reshape(B, (p.k + 1) * p.l, p.N)
+        d = rotate_decompose_plain(acc_flat, amt[s], p).view(B, -1, p.N)
         acc += poly.extprod_toeplitz_i8(d, vv[s], p.limb_plan)
+    return acc_flat
+
+
+# --- blind_rotate_gen_full -------------------------------------------------
+
+def blind_rotate_gen_full(amt: torch.Tensor, vv: torch.Tensor, mu: int,
+                          params: TfheParams) -> torch.Tensor:
+    """The whole blind rotation; returns a new (B, (k+1)*N) int32 accumulator.
+
+    amt: (S+1, B) int32, row 0 the initial body rotation (2N - b_bar) mod 2N,
+    row s+1 the rotation of step s (the transpose of
+    ``pallas_kernels.blind_rotate_gen_full``'s (B, n+1)); vv: (S, G, C, 2N)
+    int8, CloudKey.bk_tp or its first S steps; mu: the torus32 amplitude of
+    the all-mu test vector.  acc = [0 | X^amt[0] * mu], then S steps of
+    `cmux_step_gen`, in ONE kernel launch.
+    """
+    p = params
+    k1, G, C = _sizes(p)
+    S1, B = amt.shape
+    device = _check("blind_rotate_gen_full", p, amt=(amt, torch.int32, (max(S1, 1), B)),
+                    vv=(vv, torch.int8, (S1 - 1, G, C, 2 * p.N)))
+    if device.type == "cpu":
+        return blind_rotate_gen_full_plain(amt, vv, mu, p)
+    acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
+    if B == 0:
+        return acc
+    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    N, k, l, bgbit, off, ml, bl = _step_args(p)
+    _launch("peba1_blind_rotate_gen_full", device, acc.data_ptr(), amt.data_ptr(),
+            vv.data_ptr(), digits.data_ptr(), B, S1 - 1, N, k, l, bgbit, off, ml, bl,
+            mu & 0xFFFFFFFF)
+    launches["blind_rotate_gen_full"] += 1
+    return acc
+
+
+def blind_rotate_gen_full_plain(amt: torch.Tensor, vv: torch.Tensor, mu: int,
+                                params: TfheParams) -> torch.Tensor:
+    """The plain twin of `blind_rotate_gen_full`: the initial accumulator,
+    then `cmux_step_gen_plain` over the S steps."""
+    acc = rotate.initial_accumulator(amt[0], mu, params)
+    return cmux_step_gen_plain(acc.view(amt.shape[1], -1), amt[1:], vv, params)
+
+
+# --- rotate_decompose ------------------------------------------------------
+
+def rotate_decompose(acc_flat: torch.Tensor, amt: torch.Tensor,
+                     params: TfheParams) -> torch.Tensor:
+    """Fused rotate + difference + gadget decomposition.
+
+    acc_flat: (B, (k+1)*N) int32; amt: (B,) int32 in [0, 2N).  Returns the
+    digits (B, (k+1)*l*N) int8, digit q of coefficient t of polynomial u at
+    column (u*l+q)*N + t, as ``pallas_kernels.rotate_decompose`` does.
+    """
+    p = params
+    k1, G, _ = _sizes(p)
+    B = acc_flat.shape[0]
+    device = _check("rotate_decompose", p, acc_flat=(acc_flat, torch.int32, (B, k1 * p.N)),
+                    amt=(amt, torch.int32, (B,)))
+    if device.type == "cpu":
+        return rotate_decompose_plain(acc_flat, amt, p)
+    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    if B == 0:
+        return digits
+    _launch("peba1_rotate_decompose", device, acc_flat.data_ptr(), amt.data_ptr(),
+            digits.data_ptr(), B, p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p))
+    launches["rotate_decompose"] += 1
+    return digits
+
+
+def rotate_decompose_plain(acc_flat: torch.Tensor, amt: torch.Tensor,
+                           params: TfheParams) -> torch.Tensor:
+    """The plain twin of `rotate_decompose`: gather rotate, decompose."""
+    p = params
+    B = acc_flat.shape[0]
+    acc = acc_flat.view(B, p.k + 1, p.N)
+    d = dec.decompose(rotate.negacyclic_rotate(acc, amt[:, None]) - acc, p)
+    return d.movedim(-1, -2).reshape(B, -1)                  # (B, (u, q, t))
+
+
+# --- extprod_recombine -----------------------------------------------------
+
+def extprod_recombine(digits: torch.Tensor, w: torch.Tensor,
+                      params: TfheParams) -> torch.Tensor:
+    """External product with the limb recombination as the GEMM's epilogue.
+
+    digits: (B, G*N) int8 (`rotate_decompose`'s layout); w: (C*N, G*N) int8,
+    one step of CloudKey.bk_w (the port's transposed layout, see
+    ``keys.CloudKey``).  Returns (B, (k+1)*N) int32, equal to
+    ``pallas_kernels.extprod_recombine`` on JAX's (G*N, C*N) form of w.
+    """
+    p = params
+    k1, G, C = _sizes(p)
+    B = digits.shape[0]
+    device = _check("extprod_recombine", p, digits=(digits, torch.int8, (B, G * p.N)),
+                    w=(w, torch.int8, (C * p.N, G * p.N)))
+    if device.type == "cpu":
+        return extprod_recombine_plain(digits, w, p)
+    out = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
+    if B == 0:
+        return out
+    _launch("peba1_extprod_recombine", device, out.data_ptr(), digits.data_ptr(),
+            w.data_ptr(), B, p.N, p.k, p.l, p.bk_limbs, p.bk_body_limbs)
+    launches["extprod_recombine"] += 1
+    return out
+
+
+def extprod_recombine_plain(digits: torch.Tensor, w: torch.Tensor,
+                            params: TfheParams) -> torch.Tensor:
+    """The plain twin of `extprod_recombine`: a float64 GEMM (exact, see
+    ``poly``), then `poly.recombine_plan_i32`."""
+    p = params
+    B = digits.shape[0]
+    cols = poly.exact_matmul(digits, w.T).view(B, -1, p.N)   # (B, C, N)
+    return poly.recombine_plan_i32(cols, p.limb_plan).reshape(B, -1)
+
+
+# --- cmux_step -------------------------------------------------------------
+
+def cmux_step(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
+              params: TfheParams) -> torch.Tensor:
+    """S whole CMUX steps against precomputed weights, updating the
+    accumulator IN PLACE (returned).
+
+    acc_flat: (B, (k+1)*N) int32; amt: (S, B) int32; w: (S, C*N, G*N) int8,
+    S steps of CloudKey.bk_w (or one step built by `poly.toeplitz_weights`).
+    Step s is `rotate_decompose`, `extprod_recombine` and an add, as
+    ``pallas_kernels.cmux_step`` does; all digits of a step exist before any
+    acc write.
+    """
+    p = params
+    k1, G, C = _sizes(p)
+    B, S = acc_flat.shape[0], amt.shape[0]
+    device = _check("cmux_step", p, acc_flat=(acc_flat, torch.int32, (B, k1 * p.N)),
+                    amt=(amt, torch.int32, (S, B)),
+                    w=(w, torch.int8, (S, C * p.N, G * p.N)))
+    if device.type == "cpu":
+        return cmux_step_plain(acc_flat, amt, w, p)
+    if B == 0 or S == 0:
+        return acc_flat
+    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    N, k, l, bgbit, off, ml, bl = _step_args(p)
+    _launch("peba1_cmux_step", device, acc_flat.data_ptr(), amt.data_ptr(), w.data_ptr(),
+            digits.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl)
+    launches["cmux_step"] += 2 * S          # two CUDA kernels a step
+    return acc_flat
+
+
+def cmux_step_plain(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
+                    params: TfheParams) -> torch.Tensor:
+    """The plain twin of `cmux_step`, same signature and effect."""
+    for s in range(amt.shape[0]):
+        d = rotate_decompose_plain(acc_flat, amt[s], params)
+        acc_flat += extprod_recombine_plain(d, w[s], params)
     return acc_flat

@@ -11,8 +11,10 @@ in float64, which is exact while every partial sum stays below 2^53:
     TfheParams);
   * `key_negacyclic_mul`: k*N * 2^31 <= 2^42 for every preset;
   * `dot_key_i32`: n * 2^31 < 2^42.
-The card's hot path does not use these: its external product is the
-hand-written kernel in ``ops/cuda_kernels.py``.
+On the card the external product of every preset is a hand-written kernel
+in ``ops/cuda_kernels.py``, except at the presets whose JAX path left it to
+XLA (``peba1_128_fast``, ``peba1_128``, ``ring_2048``): there it is
+`extprod_toeplitz_i8` in float64, as the JAX package's is a plain XLA dot.
 """
 
 from __future__ import annotations
@@ -113,9 +115,35 @@ def recombine_plan_i32(cols: torch.Tensor, plan: "tuple[int, ...]") -> torch.Ten
 def negacyclic_toeplitz(vv: torch.Tensor) -> torch.Tensor:
     """The negacyclic matrix W[.., t, j] = vv[.., N - t + j] from the doubled
     generator vv (..., 2N) -> (..., N, N): row t is the window starting at
-    N - t, so W is a reversed view of vv's sliding windows (no copy)."""
+    N - t, vv's sliding windows in reverse (``flip`` makes it a copy)."""
     N = vv.shape[-1] // 2
     return vv.unfold(-1, N, 1)[..., 1:N + 1, :].flip(-2)
+
+
+def prepare_w_full(vv: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+    """Every step's full Toeplitz weights, in the port's transposed layout.
+
+    vv: (n, G, C, 2N) int8 doubled limb generator (CloudKey.bk_tp) ->
+    (n, C*N, G*N) int8 with W[s, c*N + j, g*N + t] = vv[s, g, c, N - t + j],
+    the transpose of each step of ``peba1_tpu.ops.poly.prepare_w_full``
+    (see ``keys.CloudKey.bk_w``).  Built `chunk` steps at a time so that the
+    Toeplitz intermediate stays near 1 GB (10.9 GB of output at
+    peba1_128_t2).
+    """
+    n, G, C, n2 = vv.shape
+    N = n2 // 2
+    if chunk is None:
+        chunk = max(1, min(n, 2**30 // (G * C * N * N)))
+    out = torch.empty((n, C * N, G * N), dtype=torch.int8, device=vv.device)
+    for s in range(0, n, chunk):
+        w = negacyclic_toeplitz(vv[s:s + chunk])         # (c, G, C, N_t, N_j)
+        out[s:s + chunk].view(-1, C, N, G, N).copy_(w.permute(0, 2, 4, 1, 3))
+    return out
+
+
+def toeplitz_weights(vv_step: torch.Tensor) -> torch.Tensor:
+    """One step of `prepare_w_full`: (G, C, 2N) -> (C*N, G*N) int8."""
+    return prepare_w_full(vv_step[None])[0]
 
 
 def extprod_toeplitz_i8(digits: torch.Tensor, vv_limbs: torch.Tensor,

@@ -31,6 +31,20 @@ def negacyclic_rotate(x: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
     return torch.where((i < N).expand(lead + (N,)), y, -y)
 
 
+def initial_accumulator(amt0: torch.Tensor, mu: int, params) -> torch.Tensor:
+    """The blind rotation's starting accumulator [0 | X^amt0 * (mu, ..., mu)].
+
+    amt0: (B,) int32, the initial body rotation (2N - b_bar) mod 2N.
+    Returns (B, (k+1)*N) int32: k zero mask polynomials, then the body.
+    """
+    p = params
+    B = amt0.shape[0]
+    acc = torch.zeros((B, p.k + 1, p.N), dtype=torch.int32, device=amt0.device)
+    tv = torch.full((B, p.N), mu, dtype=torch.int32, device=amt0.device)
+    acc[:, p.k] = negacyclic_rotate(tv, amt0)
+    return acc.view(B, -1)
+
+
 def modswitch_2n(a: torch.Tensor, N: int) -> torch.Tensor:
     """Torus32 -> Z_{2N}: round(a * 2N / 2^32), TFHE's modSwitchFromTorus32."""
     log2_2n = (2 * N).bit_length() - 1

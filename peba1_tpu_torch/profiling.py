@@ -1,20 +1,26 @@
-"""Per-batch timings of the bootstrap path on the card, and a device profile.
+"""Per-batch timings of the bootstrap paths on the card, and device profiles.
 
     python -m peba1_tpu_torch.profiling
 
-At `peba1_128_t2_gen`, for each batch size B in `BATCHES`, it prints one
-JSON line with the milliseconds of one CMUX step
-(`ops/cuda_kernels.cmux_step_gen`, one step of the cloud key), of one
-keyswitch, and of one whole bootstrap call, each the mean of a few calls
-after a warm-up, timed with CUDA events.  Then `torch.profiler` traces two
-bootstrap calls at `PROFILE_BATCH`, the authentication's mean rows per
-bootstrap call, and prints each kernel's share of the device time and the
-device's busy share of the host wall time.  The first line is the card's
-name and power limit as nvidia-smi gives them.
+For each batch size B in `BATCHES` it prints one JSON line per path, each
+time the mean of a few calls after a warm-up, timed with CUDA events:
+  * `peba1_128_t2_gen`: one CMUX step (`ops/cuda_kernels.cmux_step_gen`, one
+    step of the cloud key), one keyswitch and one whole bootstrap call;
+  * `peba1_128_t2`: one CMUX step against the precomputed weights
+    (`cuda_kernels.cmux_step`, one step of ``bk_w``);
+  * `peba1_128_fast_genf`: one whole blind rotation
+    (`cuda_kernels.blind_rotate_gen_full`, all n steps in one launch) and one
+    whole bootstrap call.
+After the t2_gen and fast_genf lines, `torch.profiler` traces two bootstrap
+calls at `PROFILE_BATCH`, the authentication's mean rows per bootstrap call,
+and prints each kernel's share of the device time and the device's busy
+share of the host wall time.  The first line is the card's name and power
+limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import time
@@ -29,7 +35,6 @@ from .ops import bootstrap as bs
 from .ops import cuda_kernels
 from .params import PRESETS
 
-PARAMS = "peba1_128_t2_gen"
 BATCHES = (32, 128, 184, 512, 1024, 2048, 4096, 8192)
 PROFILE_BATCH = 184
 SEED = 0
@@ -49,24 +54,52 @@ def mean_ms(fn, reps: int, device: torch.device) -> float:
     return start.elapsed_time(end) / reps
 
 
-def batch_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
+def _rand_i32(rng, shape, device) -> torch.Tensor:
+    return torch.as_tensor(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                           .astype(np.int32), device=device)
+
+
+def _ciphertexts(sk, B: int, device: torch.device, seed: int) -> lwe.Lwe:
+    rng = np.random.default_rng(seed + B)
+    return gates.encrypt_bits(generator(device, seed + B), sk, rng.integers(0, 2, B))
+
+
+def t2_gen_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
     p = ck.params
     rng = np.random.default_rng(seed + B)
-    ct = gates.encrypt_bits(generator(device, seed + B), sk, rng.integers(0, 2, B))
-    acc = torch.as_tensor(
-        rng.integers(-2**31, 2**31, (B, (p.k + 1) * p.N), dtype=np.int64)
-        .astype(np.int32), device=device)
-    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (1, B), dtype=np.int32),
-                          device=device)
-    a_ext = torch.as_tensor(
-        rng.integers(-2**31, 2**31, (B, p.k * p.N), dtype=np.int64)
-        .astype(np.int32), device=device)
+    ct = _ciphertexts(sk, B, device, seed)
+    acc = _rand_i32(rng, (B, (p.k + 1) * p.N), device)
+    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (1, B), dtype=np.int32), device=device)
+    a_ext = _rand_i32(rng, (B, p.k * p.N), device)
     b_ext = a_ext[:, 0].clone()
     return {"B": B,
             "cmux_step_ms": mean_ms(
                 lambda: cuda_kernels.cmux_step_gen(acc, amt, ck.bk_tp[:1], p),
                 5, device),
             "keyswitch_ms": mean_ms(lambda: bs.keyswitch(ck, a_ext, b_ext), 5, device),
+            "bootstrap_ms": mean_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8),
+                                    2, device)}
+
+
+def t2_w_times(ck, B: int, device: torch.device, seed: int) -> dict:
+    p = ck.params
+    rng = np.random.default_rng(seed + B)
+    acc = _rand_i32(rng, (B, (p.k + 1) * p.N), device)
+    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (1, B), dtype=np.int32), device=device)
+    return {"B": B, "cmux_step_ms": mean_ms(
+        lambda: cuda_kernels.cmux_step(acc, amt, ck.bk_w[:1], p), 5, device)}
+
+
+def genf_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
+    p = ck.params
+    rng = np.random.default_rng(seed + B)
+    ct = _ciphertexts(sk, B, device, seed)
+    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n + 1, B), dtype=np.int32),
+                          device=device)
+    return {"B": B,
+            "blind_rotate_ms": mean_ms(
+                lambda: cuda_kernels.blind_rotate_gen_full(amt, ck.bk_tp, gates.MU_1_8, p),
+                2, device),
             "bootstrap_ms": mean_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8),
                                     2, device)}
 
@@ -110,11 +143,22 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
         flush=True)
-    sk, ck = keys.keygen(generator(device, SEED), PRESETS[PARAMS], device)
-    for B in BATCHES:
-        print(json.dumps({"params": PARAMS, **batch_times(ck, sk, B, device, SEED)}),
-              flush=True)
-    print(json.dumps(profile(ck, sk, PROFILE_BATCH, device, SEED)), flush=True)
+    for name in ("peba1_128_t2_gen", "peba1_128_t2", "peba1_128_fast_genf"):
+        sk, ck = keys.keygen(generator(device, SEED), PRESETS[name], device)
+        for B in BATCHES:
+            if name == "peba1_128_t2":
+                times = t2_w_times(ck, B, device, SEED)
+            elif name == "peba1_128_t2_gen":
+                times = t2_gen_times(ck, sk, B, device, SEED)
+            else:
+                times = genf_times(ck, sk, B, device, SEED)
+            print(json.dumps({"params": name, **times}), flush=True)
+        if name != "peba1_128_t2":
+            print(json.dumps({"params": name,
+                              **profile(ck, sk, PROFILE_BATCH, device, SEED)}), flush=True)
+        del sk, ck
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

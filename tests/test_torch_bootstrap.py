@@ -1,13 +1,16 @@
 """Gate bootstrap of the port, bit-equal to peba1_tpu's with carried keys.
 
 The JAX package makes the keys and the input ciphertexts; the port gets the
-same tensors through keys.cloud_key_from_numpy.  The reference runs in its
-plain configuration (no Pallas kernel), as tests/test_fused.py does; the port
-runs the path its parameters select (the cmux_step_gen wrapper, plain twin on
-the CPU, for the _gen variants).
+same tensors through keys.cloud_key_from_numpy (JAX's bk_w included).  The
+reference runs in its plain configuration (no Pallas kernel), as
+tests/test_fused.py does; the port runs the path its parameters select, each
+kernel's wrapper running its plain twin on the CPU.  Cases that share their
+cryptographic parameters (they differ only in kernel flags) share one JAX
+keygen and one reference bootstrap.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -19,45 +22,77 @@ from peba1_tpu import gates as jgates
 from peba1_tpu import keys as jkeys
 from peba1_tpu import lwe as jlwe
 from peba1_tpu.ops import bootstrap as jbs
-from peba1_tpu.params import TOY, TOY_NOISY, TOY_T2
+from peba1_tpu.params import TOY, TOY_FAST, TOY_NOISY, TOY_T2
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.ops import bootstrap as bs
+from peba1_tpu_torch.ops import cuda_kernels
 
 CASES = {
     "toy": TOY,
     "toy_t2_gen": dataclasses.replace(TOY_T2, use_gen_step=True),
     "toy_n256_gen": dataclasses.replace(TOY, N=256, use_gen_step=True),
+    "toy_fast": TOY_FAST,
+    "toy_t2": TOY_T2,
+    "toy_t2_stream": dataclasses.replace(TOY_T2, w_streaming=True),
+    "toy_fast_genf": dataclasses.replace(TOY_FAST, use_gen_step=True, use_gen_full=True),
+    "toy_t2_extprod": dataclasses.replace(TOY_T2, use_fused_step=False,
+                                          use_pallas_extprod=True),
 }
+# case -> the kernel wrappers its blind rotation enters
+WRAPPERS = {"toy": set(), "toy_t2_gen": {"cmux_step_gen"},
+            "toy_n256_gen": {"cmux_step_gen"}, "toy_fast": {"rotate_decompose"},
+            "toy_t2": {"cmux_step"}, "toy_t2_stream": {"cmux_step"},
+            "toy_fast_genf": {"blind_rotate_gen_full"},
+            "toy_t2_extprod": {"rotate_decompose", "extprod_recombine"}}
+# case family (the name before "_gen", "_stream", ...) -> the parameters its
+# JAX keygen runs under; TOY_T2 builds bk_w.
+FAMILIES = {"toy": TOY, "toy_t2": TOY_T2, "toy_n256": dataclasses.replace(TOY, N=256),
+            "toy_fast": TOY_FAST}
+
+
+def family_of(case_name):
+    return max((f for f in FAMILIES if case_name.startswith(f)), key=len)
 
 
 def _plain(base):
     return dataclasses.replace(
         base, use_fused_cmux=False, use_pallas_rotate=False,
         use_pallas_extprod=False, use_fused_step=False, use_gen_step=False,
-        use_gen_full=False)
+        use_gen_full=False, w_streaming=False)
 
 
 def carry(p, ck):
+    bk_w = None if ck.bk_w is None else np.array(ck.bk_w)
     return keys.cloud_key_from_numpy(p, np.array(ck.bk_tp), np.array(ck.ks_table_limbs),
-                                     "cpu")
+                                     "cpu", bk_w=bk_w)
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def case(request):
-    """One JAX keygen per case, and a batch of 37 ciphertexts ready for the
-    identity bootstrap AND(x, x), in both packages' types."""
-    p = CASES[request.param]
+@functools.lru_cache(maxsize=None)
+def family(name):
+    """One JAX keygen, a batch of 37 ciphertexts ready for the identity
+    bootstrap AND(x, x) in both packages' types, and the plain reference's
+    bootstrap and bootstrap_wo_ks of them."""
+    p = FAMILIES[name]
     sk, ck = jkeys.keygen(jax.random.PRNGKey(0), p)
     bits = jnp.arange(37) % 3 % 2
     ct = jgates.encrypt_bits(jax.random.PRNGKey(1), sk, bits)
     pre = jlwe.Lwe(ct.a * 2, ct.b * 2 + jnp.int32(-jgates.MU_1_8))
     tpre = lwe.Lwe(torch.as_tensor(np.array(pre.a)), torch.as_tensor(np.array(pre.b)))
-    return p, sk, ck, bits, pre, tpre
+    plain = ck.replace(params=_plain(p))
+    ref = jbs.bootstrap(plain, pre, jnp.int32(jgates.MU_1_8))
+    ref_wo_ks = jbs.bootstrap_wo_ks(plain, pre, jnp.int32(jgates.MU_1_8))
+    return sk, ck, bits, tpre, ref, ref_wo_ks
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    sk, ck, bits, tpre, ref, ref_wo_ks = family(family_of(request.param))
+    return (CASES[request.param], sk, ck, bits, tpre, ref, ref_wo_ks,
+            WRAPPERS[request.param])
 
 
 def test_bootstrap_bit_equal_to_reference(case):
-    p, sk, ck, bits, pre, tpre = case
-    ref = jbs.bootstrap(ck.replace(params=_plain(p)), pre, jnp.int32(jgates.MU_1_8))
+    p, sk, ck, bits, tpre, ref, _, _ = case
     out = bs.bootstrap(carry(p, ck), tpre, gates.MU_1_8)
     np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
     np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
@@ -66,11 +101,27 @@ def test_bootstrap_bit_equal_to_reference(case):
 
 
 def test_bootstrap_wo_ks_bit_equal_to_reference(case):
-    p, _, ck, _, pre, tpre = case
-    ra, rb = jbs.bootstrap_wo_ks(ck.replace(params=_plain(p)), pre, jnp.int32(jgates.MU_1_8))
+    p, _, ck, _, tpre, _, (ra, rb), _ = case
     ta, tb = bs.bootstrap_wo_ks(carry(p, ck), tpre, gates.MU_1_8)
     np.testing.assert_array_equal(np.asarray(ra), ta.numpy())
     np.testing.assert_array_equal(np.asarray(rb), tb.numpy())
+
+
+def test_blind_rotate_enters_its_wrappers(case, monkeypatch):
+    """Each configuration goes through the wrappers of the TPU kernels its
+    JAX branch calls (the plain twins run inside them on the CPU), reading
+    the key form keys.active_bk_field names."""
+    p, _, ck, _, tpre, _, _, wrappers = case
+    entered = set()
+    for name in cuda_kernels.launches:
+        def spy(*args, _name=name, _fn=getattr(cuda_kernels, name)):
+            entered.add(_name)
+            return _fn(*args)
+        monkeypatch.setattr(cuda_kernels, name, spy)
+    tck = carry(p, ck)
+    assert (tck.bk_w is not None) == (keys.active_bk_field(p) == "bk_w")
+    bs.bootstrap_wo_ks(tck, lwe.Lwe(tpre.a[:3], tpre.b[:3]), gates.MU_1_8)
+    assert entered == wrappers
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from peba1_tpu import keys as jkeys
 from peba1_tpu import lwe as jlwe
 from peba1_tpu.io import serial as jserial
 from peba1_tpu.params import TOY_T2
+from peba1_tpu.ops import poly as jpoly
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.io import serial
 from peba1_tpu_torch.ops import bootstrap as bs
@@ -59,6 +60,25 @@ def test_port_keys_load_in_the_reference(tmp_path):
     np.testing.assert_array_equal(np.asarray(jck.bk_conv), np.asarray(want))
     want_tp = jax.vmap(lambda g: jkeys.poly.prepare_toeplitz_rhs(g, P.limb_plan))(jnp.asarray(jck.bk))
     np.testing.assert_array_equal(np.asarray(want_tp), ck.bk_tp.numpy())
+
+
+def test_reference_t2_key_loads_with_bk_w_rebuilt(tmp_path):
+    """TOY_T2 selects cmux_step against bk_w; neither package stores bk_w, so
+    the port rebuilds it on load, equal (in its transposed layout) to the
+    JAX package's."""
+    sk, ck = jkeys.keygen(jax.random.PRNGKey(23), TOY_T2)
+    jserial.save_cloud_key(str(tmp_path / "ck.npz"), ck)
+    tck = serial.load_cloud_key(str(tmp_path / "ck.npz"), "cpu")
+    assert keys.need_w(tck.params) and ck.bk_w is not None
+    np.testing.assert_array_equal(tck.bk_w.transpose(1, 2).numpy(), np.asarray(ck.bk_w))
+    np.testing.assert_array_equal(np.asarray(jpoly.prepare_w_full(ck.bk_tp)),
+                                  np.asarray(ck.bk_w))
+    tsk = keys.secret_key_from_numpy(TOY_T2, np.array(sk.lwe_key), np.array(sk.tlwe_key),
+                                     "cpu")
+    bits = np.arange(7) % 2
+    ct = gates.encrypt_bits(torch.Generator().manual_seed(4), tsk, bits)
+    out = bs.bootstrap(tck, lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8), gates.MU_1_8)
+    np.testing.assert_array_equal(gates.decrypt_bits(out, tsk).numpy(), bits)
 
 
 def test_ciphertexts_cross_both_ways(tmp_path, jax_keys):

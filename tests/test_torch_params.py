@@ -39,10 +39,14 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("name,kernel", [
     ("peba1_128_t2_gen", None), ("peba1_128_fast_gen", None),
     ("ring_2048_gen", None), ("peba1_128", None), ("ring_2048", None),
-    ("toy", None), ("peba1_128_t2_genf", "blind_rotate_gen_full"),
-    ("peba1_128_t2", "cmux_step"), ("peba1_128_fast", "rotate_decompose"),
-    ("toy_fast", "rotate_decompose")])
+    ("toy", None), ("peba1_128_t2_genf", None), ("peba1_128_fast_genf", None),
+    ("peba1_128_t2", None), ("peba1_128_fast", None), ("toy_fast", None),
+    ("peba1_128_t2_stream", None), ("peba1_128_fast_stream", None),
+    ("toy_t2", None), ("fused_cmux", "fused_blind_rotate")])
 def test_unported_kernel_follows_the_reference_branch_order(name, kernel):
     """On the card a preset runs only where its kernel is ported; the kernel
-    named is the one peba1_tpu's blind_rotate would select."""
-    assert tbs.unported_kernel(tp.PRESETS[name]) == kernel
+    named is the one peba1_tpu's blind_rotate would select.  Only
+    use_fused_cmux, which no preset sets, selects one that is not."""
+    p = (dataclasses.replace(tp.PEBA1_128_T2_GENF, use_fused_cmux=True)
+         if name == "fused_cmux" else tp.PRESETS[name])
+    assert tbs.unported_kernel(p) == kernel
