@@ -22,7 +22,14 @@ phase printing one JSON line:
   6. gate chains at peba1_128_t2 (cmux_step against bk_w), peba1_128_fast
      (rotate_decompose and the float64 Toeplitz GEMM) and peba1_128_t2 with
      use_pallas_extprod (rotate_decompose and extprod_recombine);
-  7. the kernels line, then {"ok": true, "device": {...}} as the last line.
+  7. peba1_128_fast with use_fused_cmux (one fused_blind_rotate launch per
+     bootstrap call, against the A-matrix key bk_amat): a gate chain at
+     B=8192, the rotation bit-equal to the cmux_step_gen path on the same
+     key at B=8192 and the full n, and a checkpointed 1:N identification
+     sweep at full width (sweep.IdentifySweep: 4 templates, one a near
+     match, in one chunk; probe and templates through io/wire frames), run
+     a second time on the same directory, which resumes with 0 launches;
+  8. the kernels line, then {"ok": true, "device": {...}} as the last line.
 Every path's launch counts are set to 0 just before it runs and read just
 after.  Any failure exits non-zero before the last line.  With no CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -45,7 +52,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core ops, 2 per MAC
 MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
-# (kernel, preset, batch, steps): the shapes each kernel meets on its path.
+# (kernel, preset or fused_params() label, batch, steps): the shapes each
+# kernel meets on its path.
 KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 8192, 3),
     ("cmux_step_gen", "peba1_128_t2_gen", 1000, 3),
@@ -64,8 +72,12 @@ KERNEL_CASES = (
     ("extprod_recombine", "peba1_128_t2", 8192, 1),
     ("extprod_recombine", "peba1_128_t2", 1000, 1),
     ("extprod_recombine", "peba1_128_fast", 1000, 1),
+    ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
+    ("fused_blind_rotate", "peba1_128_fast_fused", 1000, 8),
+    ("fused_blind_rotate", "peba1_128_t2_fused", 8192, 8),
+    ("fused_blind_rotate", "peba1_128_fast_fused_k256", 1000, 8),
 )
-STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step")
+STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step", "fused_blind_rotate")
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
     "cmux_step_gen": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
@@ -78,7 +90,30 @@ KERNELS = {
                   "peba1_tpu/ops/pallas_kernels.py:341"),
     "extprod_recombine": ("peba1_tpu_torch/csrc/cmux_step.cu",
                           "peba1_tpu/ops/pallas_kernels.py:265"),
+    "fused_blind_rotate": ("peba1_tpu_torch/csrc/fused_blind_rotate.cu",
+                           "peba1_tpu/ops/pallas_kernels.py:167"),
 }
+# A kernel with no single PyTorch call that computes what it computes.
+NO_LIBRARY_CALL = {"rotate_decompose": "none: no single PyTorch call computes "
+                                       "rotate + decompose"}
+
+
+def fused_params() -> dict:
+    """The use_fused_cmux configurations (no preset sets it; the JAX
+    package's scripts/diag.py:55-69 builds them the same way): label ->
+    TfheParams.  K = amat_block = 128 (U = 8) unless the label says k256."""
+    from peba1_tpu_torch.params import PEBA1_128_FAST, PEBA1_128_T2
+    fast = dataclasses.replace(PEBA1_128_FAST, use_fused_cmux=True)
+    return {"peba1_128_fast_fused": fast,
+            "peba1_128_fast_fused_k256": dataclasses.replace(fast, amat_block=256),
+            "peba1_128_t2_fused": dataclasses.replace(
+                PEBA1_128_T2, use_fused_step=False, use_pallas_rotate=False,
+                use_fused_cmux=True)}
+
+
+def params_of(name: str):
+    from peba1_tpu_torch.params import PRESETS
+    return PRESETS[name] if name in PRESETS else fused_params()[name]
 
 
 class SmokeFailure(RuntimeError):
@@ -186,7 +221,14 @@ def _inputs(kernel: str, p, B: int, steps: int, device, seed: int):
         return args, 0, macs, nbytes, (i8((B, GN)), i8((CN, GN)))
     if kernel == "blind_rotate_gen_full":
         args = (rot((steps + 1, B)), i8((steps, G, C, 2 * p.N)), MU, p)
-        return args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes, None
+        return (args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes,
+                (i8((B, GN)), i8((CN, GN))))
+    if kernel == "fused_blind_rotate":
+        from peba1_tpu_torch.ops.poly import amat_geometry
+        K, _, span = amat_geometry(p.N, p.amat_block)
+        args = (rot((steps + 1, B)), i8((steps, C, G, span, K)), MU, p)
+        return (args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes,
+                (i8((B, GN)), i8((CN, GN))))
     if kernel == "rotate_decompose":
         args = (i32((B, k1 * p.N)), rot((B,)), p)
         return args, None, 0, acc_bytes + args[1].nbytes + B * GN, None
@@ -209,8 +251,7 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
     step."""
     import torch
     from peba1_tpu_torch.ops import cuda_kernels as ck
-    from peba1_tpu_torch.params import PRESETS
-    p = PRESETS[params_name]
+    p = params_of(params_name)
     args, inplace, macs, nbytes, gemm = _inputs(kernel, p, B, steps, device, seed)
     wrapper, plain = getattr(ck, kernel), getattr(ck, kernel + "_plain")
 
@@ -258,13 +299,13 @@ def phase_kernel(device, cases=KERNEL_CASES) -> dict:
 def expected_launches(p, calls: int) -> dict:
     """The CUDA launches `calls` bootstrap calls at p make, by kernel."""
     from peba1_tpu_torch.ops import cuda_kernels
+    from peba1_tpu_torch.ops.bootstrap import selected_kernel
     want = dict.fromkeys(cuda_kernels.launches, 0)
-    if p.use_gen_full:
-        want["blind_rotate_gen_full"] = calls
-    elif p.use_gen_step:
-        want["cmux_step_gen"] = 2 * p.n * calls
-    elif p.use_fused_step:
-        want["cmux_step"] = 2 * p.n * calls
+    kernel = selected_kernel(p)
+    if kernel in ("fused_blind_rotate", "blind_rotate_gen_full"):
+        want[kernel] = calls                 # one launch a rotation
+    elif kernel in ("cmux_step_gen", "cmux_step"):
+        want[kernel] = 2 * p.n * calls       # two launches a CMUX step
     else:
         want["rotate_decompose"] = p.n * calls if p.use_pallas_rotate else 0
         want["extprod_recombine"] = p.n * calls if p.use_pallas_extprod else 0
@@ -287,8 +328,7 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
     import torch
     from peba1_tpu_torch import gates, keys
     from peba1_tpu_torch.ops import cuda_kernels
-    from peba1_tpu_torch.params import PRESETS
-    p = PRESETS[params] if isinstance(params, str) else params
+    p = params_of(params) if isinstance(params, str) else params
     label = label or params
     reset_peak(device)
     t0 = time.time()
@@ -312,8 +352,8 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
     if torch_is_cuda(device):
         check(launches == expected_launches(p, steps),
               f"{label}: launches {launches}, want {expected_launches(p, steps)}")
-    key_gb = sum(t.nbytes for t in (ck.bk_tp, ck.bk_w, ck.ks_table_limbs, ck.bk)
-                 if t is not None) / 1e9
+    key_gb = sum(t.nbytes for t in (ck.bk_tp, ck.bk_w, ck.bk_amat, ck.bk_conv,
+                                     ck.ks_table_limbs, ck.bk) if t is not None) / 1e9
     return (sk, ck), {"phase": "gate", "params": label, "B": B,
                       "chain": steps, "keygen_seconds": t_keygen,
                       "seconds": dt, "bootstraps_per_s": steps * B / dt,
@@ -321,8 +361,9 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
                       "key_gb": key_gb, "peak_gb": peak_gb(device)}
 
 
-def phase_genf_equal(keyset, B: int, device, seed: int = 0) -> dict:
-    """The use_gen_full blind rotation against the use_gen_step one on the
+def phase_rotation_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
+    """The keyset's whole-rotation kernel path (use_gen_full or
+    use_fused_cmux) against the use_gen_step rotation (cmux_step_gen) on the
     same key and ciphertexts, at the full n: bit-equal accumulators."""
     import torch
     from peba1_tpu_torch import gates, lwe
@@ -335,13 +376,16 @@ def phase_genf_equal(keyset, B: int, device, seed: int = 0) -> dict:
     pre = lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8)
     bara, barb = rotate.modswitch_2n(pre.a, p.N), rotate.modswitch_2n(pre.b, p.N)
     full = bs.blind_rotate(ck, bara, barb, gates.MU_1_8)
-    step_key = dataclasses.replace(ck, params=dataclasses.replace(p, use_gen_full=False))
-    step = bs.blind_rotate(step_key, bara, barb, gates.MU_1_8)
+    step_p = dataclasses.replace(p, use_fused_cmux=False, use_gen_full=False,
+                                 use_gen_step=True)
+    step = bs.blind_rotate(dataclasses.replace(ck, params=step_p), bara, barb, gates.MU_1_8)
     sync(device)
     mismatches = int((full != step).sum())
-    check(mismatches == 0, f"gen_full and gen_step rotations differ in {mismatches} places")
-    return {"phase": "gate_equal", "params": "peba1_128_fast_genf vs use_gen_step",
-            "B": B, "steps": p.n, "mismatches": mismatches}
+    check(mismatches == 0, f"{label}: {bs.selected_kernel(p)} and cmux_step_gen "
+          f"rotations differ in {mismatches} places")
+    return {"phase": "rotation_equal", "params": f"{label} vs use_gen_step",
+            "kernel": bs.selected_kernel(p), "B": B, "steps": p.n,
+            "mismatches": mismatches}
 
 
 def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
@@ -414,6 +458,106 @@ def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
     return out
 
 
+def phase_sweep(keyset, nslots: int, bitsize: int, n_templates: int, chunk: int,
+                device, label: str, seed: int = 0) -> dict:
+    """A checkpointed 1:N identification sweep at full width: the client
+    encrypts a probe, the template database (one near match, as
+    scripts/sweep_identify.make_inputs builds it, the others random) and the
+    bound; each crosses to the server as an io/wire frame; IdentifySweep
+    runs Server.identify chunk by chunk into a checkpoint directory.  Then
+    the same sweep again on the same directory: it must skip every chunk
+    with 0 launches, and collect() must return the same tensors."""
+    import io
+    import shutil
+    import torch
+    from peba1_tpu_torch import circuits as cc
+    from peba1_tpu_torch.backends import CountingBackend
+    from peba1_tpu_torch.io import wire
+    from peba1_tpu_torch.ops import cuda_kernels
+    from peba1_tpu_torch.params import ProtocolParams
+    from peba1_tpu_torch.protocol import ClientDevice, Server
+    from peba1_tpu_torch.sweep import IdentifySweep
+    from peba1_tpu_torch.utils.bits import int_to_bits
+    from peba1_tpu_torch.utils.logging import EventLog
+    sk, ck = keyset
+    p = ck.params
+    bound = 2 * nslots
+    proto = ProtocolParams(nslots=nslots, bitsize=bitsize, max_bitsize=3 * bitsize,
+                           mul_width=3 * bitsize - 1, bound_match=bound)
+    rng = np.random.default_rng(seed)
+    hi = (1 << bitsize) - 1
+    templates = rng.integers(1, hi + 1, (n_templates, nslots))
+    probe = np.minimum(templates[n_templates // 3] + 1, hi)
+    dist = ((templates - probe) ** 2).sum(1)
+    want = (dist > bound).astype(int)
+    check(int(want.sum()) == n_templates - 1, f"test vectors: distances {dist.tolist()}")
+
+    # The bootstraps Server.identify's circuit runs, counted on plaintext.
+    counter = CountingBackend()
+    cc.function_f(counter, int_to_bits(np.broadcast_to(probe, templates.shape), bitsize, "cpu"),
+                  int_to_bits(templates, bitsize, "cpu"),
+                  int_to_bits([bound] * n_templates, 3 * bitsize, "cpu"), bitsize)
+
+    client = ClientDevice(7, sk, ck, proto)
+    g_enc = torch.Generator(device=device).manual_seed(seed + 4)
+    frames = {"probe": wire.encode_ciphertext(client.encrypt_vector(g_enc, probe)),
+              "templates": wire.encode_ciphertext(client.encrypt_vector(g_enc, templates)),
+              "bound": wire.encode_ciphertext(client.encrypt_word(g_enc, bound, 3 * bitsize))}
+    server = Server(ck, proto)
+    probe_ct, templates_ct, bound_ct = (wire.decode_ciphertext(frames[k], device)[0]
+                                        for k in ("probe", "templates", "bound"))
+    out_dir = os.path.join(ROOT, "build", "smoke_sweep")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    events = io.StringIO()
+    sweep = IdentifySweep(server, out_dir, chunk=chunk, log=EventLog(stream=events))
+    reset_peak(device)
+    sync(device)
+    cuda_kernels.reset_launches()
+    t0 = time.time()
+    plan = sweep.run(probe_ct, templates_ct, bound_ct)
+    sync(device)
+    dt = time.time() - t0
+    launches = dict(cuda_kernels.launches)
+    calls = server.be.launches
+    first = sweep.collect(device)
+    got = client.decrypt_word(first)
+
+    cuda_kernels.reset_launches()
+    t0 = time.time()
+    sweep.run(probe_ct, templates_ct, bound_ct)
+    dt_resume = time.time() - t0
+    resumed_launches = dict(cuda_kernels.launches)
+    again = sweep.collect(device)
+    log = [json.loads(line) for line in events.getvalue().splitlines()]
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    out = {"phase": "sweep", "params": label, "nslots": nslots, "bitsize": bitsize,
+           "bound": bound, "n_templates": n_templates, "chunk": chunk,
+           "n_chunks": plan.n_chunks, "fingerprint": plan.fingerprint,
+           "distances": dist.tolist(), "b": got.tolist(), "want_b": want.tolist(),
+           "wire_native": wire.have_native(),
+           "wire_bytes": {k: len(v) for k, v in frames.items()},
+           "seconds": dt, "chunk_seconds": [e["seconds"] for e in log
+                                            if e["event"] == "sweep_chunk"],
+           "templates_per_s": n_templates / dt,
+           "bootstraps_per_template": counter.bootstraps / n_templates,
+           "bootstraps_per_s": counter.bootstraps / dt,
+           "bootstrap_calls": calls, "launches": launches,
+           "resume_seconds": dt_resume, "resume_launches": resumed_launches,
+           "resume_bootstrap_calls": server.be.launches - calls,
+           "peak_gb": peak_gb(device)}
+    check(np.array_equal(got, want), f"sweep decisions {got.tolist()} != {want.tolist()}")
+    check(torch.equal(first.a, again.a) and torch.equal(first.b, again.b),
+          "the resumed sweep collects other tensors")
+    check(not any(resumed_launches.values()) and server.be.launches == calls,
+          f"the resumed sweep launched {resumed_launches}")
+    if torch_is_cuda(device):
+        want_l = expected_launches(p, calls)
+        check(launches == want_l and calls > 0,
+              f"the sweep launched {launches}, want {want_l}")
+    return out
+
+
 def kernels_line(kernel: dict, main: dict) -> dict:
     """One entry per kernel: its first (largest) case's numbers, the largest
     error over all its cases, and its launches on its main path."""
@@ -428,6 +572,8 @@ def kernels_line(kernel: dict, main: dict) -> dict:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"],
+                     **({"library_note": NO_LIBRARY_CALL[name]}
+                        if name in NO_LIBRARY_CALL else {}),
                      "case": {k: first[k] for k in ("params", "B", "steps", "unit")}})
     return {"kernels": rows}
 
@@ -470,7 +616,7 @@ def main() -> int:
 
         keyset, gate = phase_gate("peba1_128_fast_genf", 8192, 3, device)
         emit(gate)
-        emit(phase_genf_equal(keyset, 8192, device))
+        emit(phase_rotation_equal(keyset, 8192, device, "peba1_128_fast_genf"))
         auth = phase_auth(keyset, 128, 8, device, "peba1_128_fast_genf")
         emit(auth)
         path("auth peba1_128_fast_genf", auth["launches"], "blind_rotate_gen_full")
@@ -495,6 +641,16 @@ def main() -> int:
                                   label="peba1_128_t2 use_pallas_extprod")
         emit(gate)
         path("gate peba1_128_t2 use_pallas_extprod", gate["launches"], "extprod_recombine")
+        del keyset
+        free_device_memory()
+
+        fused = "peba1_128_fast_fused"
+        keyset, gate = phase_gate(fused, 8192, 3, device)
+        emit(gate)
+        emit(phase_rotation_equal(keyset, 8192, device, fused))
+        sweep = phase_sweep(keyset, 128, 8, 4, 4, device, fused)
+        emit(sweep)
+        path(f"sweep {fused}", sweep["launches"], "fused_blind_rotate")
         del keyset
         free_device_memory()
     except SmokeFailure as e:

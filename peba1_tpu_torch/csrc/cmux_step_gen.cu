@@ -185,20 +185,7 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ __align__(16) int8_t smem[];
   const int k1 = k + 1, G = k1 * l, C = k * mask_limbs + body_limbs;
 
-  // acc = [0 | X^amt0 * (mu, ..., mu)]
-  const size_t acc_len = (size_t)B * k1 * N;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < acc_len;
-       idx += stride) {
-    const int t = (int)(idx % N);
-    const size_t bu = idx / N;
-    uint32_t v = 0;
-    if ((int)(bu % k1) == k) {
-      const uint32_t i = ((uint32_t)t - (uint32_t)amt[bu / k1]) & (uint32_t)(2 * N - 1);
-      v = i < (uint32_t)N ? mu : 0u - mu;
-    }
-    __stcg(acc + idx, v);
-  }
+  init_accumulator(acc, amt, B, N, k, mu);  // acc = [0 | X^amt0 * (mu, ..., mu)]
   grid.sync();
 
   const int tiles_j = N / BN, tiles_m = (B + BM - 1) / BM;
@@ -277,20 +264,11 @@ extern "C" int peba1_blind_rotate_gen_full(void* acc, const void* amt, const voi
   const int k1 = k + 1;
   int gen_stride = gen_stride_for(N);
   const int smem = gemm_smem(N) > N * 4 ? gemm_smem(N) : N * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_gen_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, blind_rotate_gen_full_kernel, THREADS, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   const int n_tiles = (N / BN) * ((B + BM - 1) / BM) * k1;
-  const int work = n_tiles > B * k1 ? n_tiles : B * k1;
-  const int grid = per_sm * sms < work ? per_sm * sms : work;
+  int grid = 0;
+  cudaError_t err = cooperative_grid(blind_rotate_gen_full_kernel, smem,
+                                     n_tiles > B * k1 ? n_tiles : B * k1, &grid);
+  if (err != cudaSuccess) return (int)err;
 
   uint32_t* acc_p = static_cast<uint32_t*>(acc);
   const int32_t* amt_p = static_cast<const int32_t*>(amt);

@@ -1,12 +1,16 @@
-// Device code shared by the kernel families of csrc/ (cmux_step_gen.cu and
-// cmux_step.cu): the tile constants, the int8 tensor-core product, one row of
-// rotate + difference + gadget decomposition, and the limb-recombining
-// epilogue of a GEMM tile.
+// Device code shared by the kernel families of csrc/ (cmux_step_gen.cu,
+// cmux_step.cu and fused_blind_rotate.cu): the tile constants, the int8
+// tensor-core product, one row of rotate + difference + gadget
+// decomposition, the limb-recombining epilogue of a GEMM tile, and the
+// accumulator set-up and grid size of the whole-rotation kernels.  Each
+// family keeps its GEMM tile in its own source: made a template shared with
+// the A-matrix tile, cmux_step.cu's W tile measured 7-19% slower on an H100
+// (PERF.md, kernel 6's findings).
 //
 // All arithmetic on torus values is uint32 (signed overflow is undefined in
 // C++).  The accumulator and the digit scratch are read and written through
 // `load`/`store`, whose SHARED flag says whether other blocks of the same
-// launch write them: in the whole-rotation kernel they do, so there they go
+// launch write them: in the whole-rotation kernels they do, so there they go
 // through L2 only (ld/st.global.cg), since L1 is not coherent across SMs.
 // A launch that only reads them uses the read-only path (ld.global.nc).
 
@@ -114,6 +118,48 @@ __device__ __forceinline__ void store_tile(uint32_t* out,
           store<SHARED>(p, delta);
         }
       }
+}
+
+// First phase of a whole-rotation kernel, over the whole grid:
+// acc = [0 | X^amt0[b] * (mu, ..., mu)] for every row b.  Written through
+// L2 (other blocks read it after the caller's grid barrier).
+__device__ __forceinline__ void init_accumulator(uint32_t* acc, const int32_t* amt0,
+                                                 int B, int N, int k, uint32_t mu) {
+  const int k1 = k + 1;
+  const size_t acc_len = (size_t)B * k1 * N;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < acc_len;
+       idx += stride) {
+    const int t = (int)(idx % N);
+    const size_t bu = idx / N;
+    uint32_t v = 0;
+    if ((int)(bu % k1) == k) {
+      const uint32_t i = ((uint32_t)t - (uint32_t)amt0[bu / k1]) & (uint32_t)(2 * N - 1);
+      v = i < (uint32_t)N ? mu : 0u - mu;
+    }
+    __stcg(acc + idx, v);
+  }
+}
+
+// Grid of a cooperative launch of `kernel` with THREADS threads and `smem`
+// bytes of dynamic shared memory: every block that fits on the card at once
+// (occupancy x SMs), capped by `work`.  Also raises the kernel's dynamic
+// shared-memory limit to `smem`.
+template <typename Kernel>
+inline cudaError_t cooperative_grid(Kernel kernel, int smem, int work, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                           smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *grid = per_sm * sms < work ? per_sm * sms : work;
+  return cudaSuccess;
 }
 
 }  // namespace peba1

@@ -1,12 +1,11 @@
 """Key and ciphertext (de)serialization (counterpart of ``peba1_tpu/io/serial.py``).
 
 The same npz format (``FORMAT_VERSION`` 1): the tensors plus a params JSON
-member, so keys round-trip between the two packages.  A cloud key saved here
-carries ``bk`` and ``bk_conv`` as well, because the JAX package's loader
-reads them; the port itself reads only ``bk_tp`` and ``ks_table_limbs``.
-Neither package stores ``bk_w``: on load it is rebuilt from ``bk_tp`` where
-``keys.need_w`` holds (``keys.cloud_key_from_numpy``), as
-``peba1_tpu.io.serial`` does.
+member, so keys round-trip between the two packages.  A cloud key is stored
+as ``bk``, ``bk_conv``, ``bk_tp`` and ``ks_table_limbs``.  Neither package
+stores ``bk_w`` or ``bk_amat``: on load each is rebuilt from ``bk_tp`` where
+``keys.need_w`` (``keys.need_amat``) holds (``keys.cloud_key_from_numpy``),
+as ``peba1_tpu.io.serial`` does.
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ import torch
 
 from .. import lwe
 from ..keys import CloudKey, SecretKey, cloud_key_from_numpy, secret_key_from_numpy
-from ..ops import poly
 from ..params import TfheParams
 
 FORMAT_VERSION = 1
@@ -57,13 +55,13 @@ def load_secret_key(path: str, device) -> SecretKey:
 
 
 def save_cloud_key(path: str, ck: CloudKey) -> None:
-    if ck.bk is None:
-        raise ValueError("saving a cloud key needs its raw TRGSW key bk")
+    if ck.bk is None or ck.bk_conv is None:
+        raise ValueError("saving a cloud key needs its raw TRGSW key bk and bk_conv")
     np.savez_compressed(
         path,
         __params__=np.frombuffer(_params_to_json(ck.params).encode(), np.uint8),
         bk=_np(ck.bk),
-        bk_conv=_np(poly.prepare_conv_rhs(ck.bk, ck.params.limb_plan)),
+        bk_conv=_np(ck.bk_conv),
         bk_tp=_np(ck.bk_tp),
         ks_table_limbs=_np(ck.ks_table_limbs),
     )
@@ -73,7 +71,7 @@ def load_cloud_key(path: str, device) -> CloudKey:
     with np.load(path) as z:
         params = _params_from_json(bytes(z["__params__"]).decode())
         return cloud_key_from_numpy(params, z["bk_tp"], z["ks_table_limbs"],
-                                    device, bk=z["bk"])
+                                    device, bk=z["bk"], bk_conv=z["bk_conv"])
 
 
 def save_ciphertext(path: str, ct: lwe.Lwe, meta: dict | None = None) -> None:
@@ -92,3 +90,10 @@ def load_ciphertext(path: str, device) -> "tuple[lwe.Lwe, dict]":
         ct = lwe.Lwe(torch.as_tensor(z["a"], device=device),
                      torch.as_tensor(z["b"], device=device))
     return ct, meta
+
+
+def load_ciphertext_meta(path: str) -> dict:
+    """Only the metadata record of a ciphertext archive (npz members are read
+    lazily, so the tensors are never decompressed)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())

@@ -1,12 +1,12 @@
 """Key generation (counterpart of ``peba1_tpu/keys.py``).
 
-The cloud key carries the forms that the port's bootstrap reads: ``bk_tp``,
-the doubled limb-split Toeplitz generator of the bootstrapping key;
-``bk_w``, every step's full Toeplitz weights, only where `need_w` holds;
-and ``ks_table_limbs``, the keyswitch key as an int8 digit-matmul table.
-Keygen also keeps the raw TRGSW key ``bk`` so that a saved key carries every
-field the JAX package's loader reads.  The A-matrix form ``bk_amat`` and the
-conv form ``bk_conv`` are not ported.
+The cloud key carries the JAX package's forms of the bootstrapping key: the
+raw TRGSW key ``bk``; ``bk_conv``, its conv form; ``bk_tp``, the doubled
+limb-split Toeplitz generator; ``bk_amat``, the A-matrix, only where
+`need_amat` holds; ``bk_w``, every step's full Toeplitz weights, only where
+`need_w` holds; and ``ks_table_limbs``, the keyswitch key as an int8
+digit-matmul table.  ``bk_amat`` and ``bk_w`` are kept in the port's own
+layouts (see `CloudKey`).
 
 Randomness comes from an explicit ``torch.Generator``; it cannot reproduce
 the JAX package's threefry draws, so keys cross between the two packages
@@ -54,10 +54,22 @@ class CloudKey:
     # (csrc/cmux_step.cu).  None unless need_w(params): 10.9 GB at
     # peba1_128_t2.
     bk_w: torch.Tensor | None = None
+    # (n, C, G, span, K) int8: the A-matrix (ops/poly.prepare_amat), the last
+    # two axes transposed against the JAX package's (n, C, G, K, span), so
+    # that the K contraction bytes of one output column are contiguous
+    # (csrc/fused_blind_rotate.cu).  None unless need_amat(params): 4.34 GB
+    # at peba1_128_fast with K=128.
+    bk_amat: torch.Tensor | None = None
+    bk_conv: torch.Tensor | None = None  # (n, C, (k+1)l, N) int8 conv form
 
     @property
     def device(self) -> torch.device:
-        return self.bk_tp.device
+        return self.ks_table_limbs.device
+
+
+def need_amat(p: TfheParams) -> bool:
+    """Whether the cloud key must carry the A-matrix form bk_amat."""
+    return p.ext_backend == "amat" or p.use_fused_cmux
 
 
 def need_w(p: TfheParams) -> bool:
@@ -70,11 +82,26 @@ def need_w(p: TfheParams) -> bool:
 
 def active_bk_field(p: TfheParams) -> str:
     """Which CloudKey bootstrapping-key form ops.bootstrap.blind_rotate reads
-    under `p`.  It follows the JAX package's branch order, except that the
-    port reads ``bk_tp`` where the JAX package would read the unported
-    ``bk_amat`` or ``bk_conv`` (the same product, through the Toeplitz
-    generator)."""
-    return "bk_w" if need_w(p) else "bk_tp"
+    under `p` (the JAX package's branch order exactly)."""
+    if p.use_fused_cmux:
+        return "bk_amat"
+    if p.use_gen_full or p.use_gen_step:
+        return "bk_tp"
+    if p.use_fused_step:
+        return "bk_tp" if p.w_streaming else "bk_w"
+    if p.use_pallas_extprod:
+        return "bk_w"
+    return {"toeplitz": "bk_tp", "conv": "bk_conv", "amat": "bk_amat"}[p.ext_backend]
+
+
+_BK_FIELDS = ("bk", "bk_conv", "bk_tp", "bk_amat", "bk_w")
+
+
+def slim_for_bootstrap(ck: CloudKey) -> CloudKey:
+    """The cloud key with every bootstrapping-key form but the one the
+    bootstrap reads dropped (the keyswitch table stays)."""
+    active = active_bk_field(ck.params)
+    return dataclasses.replace(ck, **{f: None for f in _BK_FIELDS if f != active})
 
 
 def secret_keygen(gen: torch.Generator, params: TfheParams, device) -> SecretKey:
@@ -96,8 +123,9 @@ def keygen(gen: torch.Generator, params: TfheParams,
 def make_cloud_key(gen: torch.Generator, sk: SecretKey) -> CloudKey:
     p = sk.params
     # Bootstrapping key: TRGSW encryptions of each small-key bit, and its
-    # Toeplitz-generator form.
+    # conv and Toeplitz-generator forms.
     bk = tlwe.trgsw_encrypt(gen, sk.tlwe_key, sk.lwe_key, p)
+    bk_conv = poly.prepare_conv_rhs(bk, p.limb_plan)
     bk_tp = poly.prepare_toeplitz_rhs(bk, p.limb_plan)
 
     # Keyswitch key: ks[i][j] = LWE_s(K_i << shift_j); the switched sample
@@ -112,19 +140,35 @@ def make_cloud_key(gen: torch.Generator, sk: SecretKey) -> CloudKey:
     table = torch.cat([a, b[..., None]], dim=-1)      # (kN, t, n+1)
     ks_table_limbs = poly.split_limbs_i8(table, 4).reshape(kn * p.ks_t, (p.n + 1) * 4)
     bk_w = poly.prepare_w_full(bk_tp) if need_w(p) else None
+    bk_amat = poly.prepare_amat(bk_tp, p.amat_block) if need_amat(p) else None
     return CloudKey(bk_tp=bk_tp, ks_table_limbs=ks_table_limbs, params=p, bk=bk,
-                    bk_w=bk_w)
+                    bk_w=bk_w, bk_amat=bk_amat, bk_conv=bk_conv)
+
+
+def _transposed_steps(jax_form, shape: tuple, name: str, device) -> torch.Tensor:
+    """JAX's per-step key form `name`, of shape (n, ..., a, b), as
+    (n, ..., b, a) on `device`, one step at a time (the host copy never
+    holds more than a step)."""
+    if tuple(jax_form.shape) != shape:
+        raise ValueError(f"{name} shape {tuple(jax_form.shape)} is not {shape}")
+    out = torch.empty(shape[:-2] + (shape[-1], shape[-2]), dtype=torch.int8, device=device)
+    for s in range(shape[0]):
+        out[s] = torch.as_tensor(np.array(jax_form[s], np.int8),
+                                 device=device).transpose(-1, -2)
+    return out
 
 
 def cloud_key_from_numpy(params: TfheParams, bk_tp, ks_table_limbs, device,
-                         bk=None, bk_w=None) -> CloudKey:
+                         bk=None, bk_w=None, bk_amat=None, bk_conv=None) -> CloudKey:
     """A cloud key from the JAX package's arrays (numpy, or anything numpy
     converts): ``bk_tp`` (n, G, C, 2N) int8 and ``ks_table_limbs``
-    (kN*t, (n+1)*4) int8, optionally the raw ``bk`` and JAX's ``bk_w``
-    (n, G*N, C*N) int8, which is transposed step by step into the port's
-    layout.  Where `need_w` holds and no ``bk_w`` is given, it is built from
-    ``bk_tp``; where it does not hold, a given ``bk_w`` is dropped, as the
-    JAX package's keygen would not have built it."""
+    (kN*t, (n+1)*4) int8; optionally the raw ``bk``, ``bk_conv``
+    (n, C, G, N), and JAX's ``bk_w`` (n, G*N, C*N) and ``bk_amat``
+    (n, C, G, K, span) int8, which are transposed step by step into the
+    port's layouts.  Where `need_w` (`need_amat`) holds and no ``bk_w``
+    (``bk_amat``) is given, it is built from ``bk_tp``; where it does not
+    hold, a given one is dropped, as the JAX package's keygen would not have
+    built it."""
     p = params
     G, C = (p.k + 1) * p.l, sum(p.limb_plan)
     bk_tp = torch.as_tensor(np.asarray(bk_tp, np.int8), device=device)
@@ -135,18 +179,25 @@ def cloud_key_from_numpy(params: TfheParams, bk_tp, ks_table_limbs, device,
         raise ValueError(f"ks_table_limbs shape {tuple(ks.shape)} does not fit {p}")
     if bk is not None:
         bk = torch.as_tensor(np.asarray(bk, np.int32), device=device)
+    if bk_conv is not None:
+        bk_conv = torch.as_tensor(np.asarray(bk_conv, np.int8), device=device)
+        if tuple(bk_conv.shape) != (p.n, C, G, p.N):
+            raise ValueError(f"bk_conv shape {tuple(bk_conv.shape)} does not fit {p}")
     if not need_w(p):
         bk_w = None
     elif bk_w is None:
         bk_w = poly.prepare_w_full(bk_tp)
     else:
-        if tuple(bk_w.shape) != (p.n, G * p.N, C * p.N):
-            raise ValueError(f"bk_w shape {tuple(bk_w.shape)} does not fit {p}")
-        jax_w = bk_w
-        bk_w = torch.empty((p.n, C * p.N, G * p.N), dtype=torch.int8, device=device)
-        for s in range(p.n):
-            bk_w[s] = torch.as_tensor(np.array(jax_w[s], np.int8), device=device).T
-    return CloudKey(bk_tp=bk_tp, ks_table_limbs=ks, params=p, bk=bk, bk_w=bk_w)
+        bk_w = _transposed_steps(bk_w, (p.n, G * p.N, C * p.N), "bk_w", device)
+    if not need_amat(p):
+        bk_amat = None
+    elif bk_amat is None:
+        bk_amat = poly.prepare_amat(bk_tp, p.amat_block)
+    else:
+        K, _, span = poly.amat_geometry(p.N, p.amat_block)
+        bk_amat = _transposed_steps(bk_amat, (p.n, C, G, K, span), "bk_amat", device)
+    return CloudKey(bk_tp=bk_tp, ks_table_limbs=ks, params=p, bk=bk, bk_w=bk_w,
+                    bk_amat=bk_amat, bk_conv=bk_conv)
 
 
 def secret_key_from_numpy(params: TfheParams, lwe_key, tlwe_key,

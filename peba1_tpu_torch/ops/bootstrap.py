@@ -12,9 +12,7 @@ Exact integer arithmetic throughout.  Step 3 follows the JAX package's
 branch order (peba1_tpu/ops/bootstrap.py:69-174) on every device, each
 branch through the wrapper in ``ops/cuda_kernels.py`` of the TPU kernel that
 the JAX branch calls: the hand-written kernel on the card, its plain twin on
-the CPU.  The one unported kernel, ``fused_blind_rotate`` (``use_fused_cmux``),
-raises on the card; on the CPU those parameters run the plain scan, whose
-bits the JAX package's tests/test_fused.py proves equal to it.
+the CPU.
 """
 
 from __future__ import annotations
@@ -27,20 +25,20 @@ from ..torus import MASK32, as_u32
 from . import cuda_kernels, poly, rotate
 
 
-def unported_kernel(p: TfheParams) -> str | None:
-    """The TPU kernel that `p`'s blind rotation selects and that has no CUDA
-    port yet (the JAX package's first branch, peba1_tpu/ops/bootstrap.py:69);
-    None when it needs none."""
-    return "fused_blind_rotate" if p.use_fused_cmux else None
-
-
-def _check_ported(p: TfheParams, device: torch.device) -> None:
-    """On the card, raise for parameters whose path needs an unported kernel."""
-    kernel = unported_kernel(p)
-    if device.type != "cpu" and kernel is not None:
-        raise NotImplementedError(
-            f"these parameters select the TPU kernel {kernel}, which has no "
-            "CUDA port yet (ROADMAP.md section 2); run them on the CPU")
+def selected_kernel(p: TfheParams) -> str | None:
+    """The TPU kernel that runs `p`'s blind rotation in the JAX package's
+    branch order (peba1_tpu/ops/bootstrap.py:69-149), or None for the plain
+    scan of steps (which may call `rotate_decompose` and `extprod_recombine`
+    per step, as its flags say)."""
+    if p.use_fused_cmux:
+        return "fused_blind_rotate"
+    if p.use_gen_full:
+        return "blind_rotate_gen_full"
+    if p.use_gen_step:
+        return "cmux_step_gen"
+    if p.use_fused_step:
+        return "cmux_step"
+    return None
 
 
 def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.Tensor:
@@ -50,21 +48,22 @@ def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.T
     Returns the (B, k+1, N) int32 accumulator ~ TRLWE(X^{-phase2N} * tv).
     """
     p = ck.params
-    _check_ported(p, bara.device)
     B = bara.shape[0]
     amt0 = (2 * p.N - barb) % (2 * p.N)
     amt = bara.T.contiguous()                          # (n, B), step-major
-    if p.use_gen_full:
+    kernel = selected_kernel(p)
+    if kernel in ("fused_blind_rotate", "blind_rotate_gen_full"):
         amt_all = torch.cat([amt0[None].to(torch.int32), amt])
-        acc_flat = cuda_kernels.blind_rotate_gen_full(amt_all, ck.bk_tp, mu, p)
+        key = ck.bk_amat if kernel == "fused_blind_rotate" else ck.bk_tp
+        acc_flat = getattr(cuda_kernels, kernel)(amt_all, key, mu, p)
         return acc_flat.view(B, p.k + 1, p.N)
 
     acc_flat = rotate.initial_accumulator(amt0, mu, p)
     acc = acc_flat.view(B, p.k + 1, p.N)
-    if p.use_gen_step:
+    if kernel == "cmux_step_gen":
         cuda_kernels.cmux_step_gen(acc_flat, amt, ck.bk_tp, p)     # in place
         return acc
-    if p.use_fused_step:
+    if kernel == "cmux_step":
         if p.w_streaming:
             # This step's W built from the generator outside the kernel, as
             # the JAX package builds it in the graph (one step at a time).
@@ -77,12 +76,19 @@ def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.T
 
     rotate_decompose = (cuda_kernels.rotate_decompose if p.use_pallas_rotate
                         else cuda_kernels.rotate_decompose_plain)
+    backend = "pallas_extprod" if p.use_pallas_extprod else p.ext_backend
     for s in range(p.n):
         d = rotate_decompose(acc_flat, amt[s], p)                   # (B, G*N)
-        if p.use_pallas_extprod:
+        if backend == "pallas_extprod":
             acc_flat += cuda_kernels.extprod_recombine(d, ck.bk_w[s], p)
+            continue
+        d = d.view(B, -1, p.N)
+        if backend == "toeplitz":
+            acc += poly.extprod_toeplitz_i8(d, ck.bk_tp[s], p.limb_plan)
+        elif backend == "amat":
+            acc += poly.extprod_amat_i8(d, ck.bk_amat[s], p.limb_plan, p.N)
         else:
-            acc += poly.extprod_toeplitz_i8(d.view(B, -1, p.N), ck.bk_tp[s], p.limb_plan)
+            acc += poly.negacyclic_conv_i8(d, ck.bk_conv[s], p.limb_plan)
     return acc
 
 

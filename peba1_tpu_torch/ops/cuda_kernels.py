@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, their build, binding and plain twins.
 
-Five wrappers, each replacing one kernel of ``peba1_tpu/ops/pallas_kernels.py``
+Six wrappers, each replacing one kernel of ``peba1_tpu/ops/pallas_kernels.py``
 of the same name:
 
   * `cmux_step_gen`: whole CMUX steps with the Toeplitz weights formed on the
@@ -12,7 +12,9 @@ of the same name:
   * `extprod_recombine`: digits times one step's precomputed weights W, limb
     recombination as the epilogue (``csrc/cmux_step.cu``);
   * `cmux_step`: CMUX steps against precomputed W, the product added into the
-    accumulator (``csrc/cmux_step.cu``).
+    accumulator (``csrc/cmux_step.cu``);
+  * `fused_blind_rotate`: the whole blind rotation against the precomputed
+    A-matrix ``bk_amat``, in one launch (``csrc/fused_blind_rotate.cu``).
 
 Design notes are in the sources.  On a CPU tensor a wrapper runs its plain
 twin (``*_plain``, the same signature and result in plain PyTorch).  On a
@@ -22,7 +24,7 @@ own shared library, all at once, under the package's ``build/`` directory
 (keyed by one hash of every source and the flags; git ignores it), and bound
 with ctypes.  ``launches`` counts the CUDA kernel launches each wrapper makes:
 two per CMUX step for `cmux_step_gen` and `cmux_step`, one per call for the
-other three.
+other four.
 """
 
 from __future__ import annotations
@@ -55,10 +57,12 @@ _ENTRIES = {
     "peba1_rotate_decompose": ("cmux_step", [_P] * 3 + [_I] * 5 + [_U, _P]),
     "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 6 + [_P]),
     "peba1_cmux_step": ("cmux_step", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
+    "peba1_fused_blind_rotate": ("fused_blind_rotate",
+                                 [_P] * 4 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
 }
 
 launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
-            "extprod_recombine": 0, "cmux_step": 0}
+            "extprod_recombine": 0, "cmux_step": 0, "fused_blind_rotate": 0}
 _fns: dict = {}
 
 
@@ -348,4 +352,58 @@ def cmux_step_plain(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
     for s in range(amt.shape[0]):
         d = rotate_decompose_plain(acc_flat, amt[s], params)
         acc_flat += extprod_recombine_plain(d, w[s], params)
+    return acc_flat
+
+
+# --- fused_blind_rotate ----------------------------------------------------
+
+def fused_blind_rotate(amt: torch.Tensor, amat: torch.Tensor, mu: int,
+                       params: TfheParams) -> torch.Tensor:
+    """The whole blind rotation against the A-matrix; returns a new
+    (B, (k+1)*N) int32 accumulator.
+
+    amt: (S+1, B) int32, row 0 the initial body rotation (2N - b_bar) mod 2N,
+    row s+1 the rotation of step s (the transpose of
+    ``pallas_kernels.fused_blind_rotate``'s (B, n+1)); amat: (S, C, G, span,
+    K) int8, CloudKey.bk_amat (the port's layout, ``poly.prepare_amat``) or
+    its first S steps; mu: the torus32 amplitude of the all-mu test vector.
+    K is read from amat's shape, as the JAX wrapper does; span must be
+    N + (N/K - 1)*K.  One kernel launch.
+    """
+    p = params
+    k1, G, C = _sizes(p)
+    S1, B = amt.shape
+    K = amat.shape[-1] if amat.dim() == 5 else 0
+    if K <= 0 or p.N % K:
+        raise ValueError(f"fused_blind_rotate: amat's block K={K} must divide N={p.N}")
+    _, _, span = poly.amat_geometry(p.N, K)
+    device = _check("fused_blind_rotate", p, amt=(amt, torch.int32, (max(S1, 1), B)),
+                    amat=(amat, torch.int8, (S1 - 1, C, G, span, K)))
+    if device.type == "cpu":
+        return fused_blind_rotate_plain(amt, amat, mu, p)
+    if K % 64:
+        raise ValueError(f"fused_blind_rotate kernel needs K % 64 == 0, got K={K}")
+    acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
+    if B == 0:
+        return acc
+    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    N, k, l, bgbit, off, ml, bl = _step_args(p)
+    _launch("peba1_fused_blind_rotate", device, acc.data_ptr(), amt.data_ptr(),
+            amat.data_ptr(), digits.data_ptr(), B, S1 - 1, N, k, l, bgbit, off, ml, bl,
+            K, mu & 0xFFFFFFFF)
+    launches["fused_blind_rotate"] += 1
+    return acc
+
+
+def fused_blind_rotate_plain(amt: torch.Tensor, amat: torch.Tensor, mu: int,
+                             params: TfheParams) -> torch.Tensor:
+    """The plain twin of `fused_blind_rotate`: the initial accumulator, then
+    per step `rotate_decompose_plain`, `poly.extprod_amat_i8` and an add."""
+    p = params
+    B = amt.shape[1]
+    acc_flat = rotate.initial_accumulator(amt[0], mu, p).view(B, -1)
+    acc = acc_flat.view(B, p.k + 1, p.N)
+    for s in range(amt.shape[0] - 1):
+        d = rotate_decompose_plain(acc_flat, amt[s + 1], p).view(B, -1, p.N)
+        acc += poly.extprod_amat_i8(d, amat[s], p.limb_plan, p.N)
     return acc_flat

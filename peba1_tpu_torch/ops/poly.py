@@ -1,14 +1,14 @@
 """Negacyclic polynomial arithmetic in Z[X]/(X^N + 1) over torus32.
 
 Counterpart of the parts of ``peba1_tpu/ops/poly.py`` that the gate
-bootstrap reads.  Every function gives the JAX function's exact result mod
-2^32.
+bootstrap reads, with the key's Toeplitz, full-weight, A-matrix and conv
+forms.  Every function gives the JAX function's exact result mod 2^32.
 
 Integer products: ``torch.matmul`` of two int8 tensors returns int8 and
 wraps, and CUDA has no integer matmul.  The plain products here therefore run
 in float64, which is exact while every partial sum stays below 2^53:
-  * `extprod_toeplitz_i8`: (k+1)*l*N * 128 * 128 < 2^31 (asserted by
-    TfheParams);
+  * `extprod_toeplitz_i8`, `extprod_amat_i8`, `negacyclic_conv_i8`:
+    (k+1)*l*N * 128 * 128 < 2^31 (asserted by TfheParams);
   * `key_negacyclic_mul`: k*N * 2^31 <= 2^42 for every preset;
   * `dot_key_i32`: n * 2^31 < 2^42.
 On the card the external product of every preset is a hand-written kernel
@@ -187,8 +187,8 @@ def prepare_toeplitz_rhs(q: torch.Tensor, limbs) -> torch.Tensor:
 
 
 def prepare_conv_rhs(q: torch.Tensor, limbs) -> torch.Tensor:
-    """The JAX package's conv form of the key, kept only so that a saved
-    cloud key carries every field that ``peba1_tpu.io.serial`` reads.
+    """The conv form of the key (CloudKey.bk_conv), read by
+    `negacyclic_conv_i8`.
 
     q: (..., G, O, N) int32 -> (..., C, G, N) int8, limb-split and reversed
     along N.
@@ -197,6 +197,84 @@ def prepare_conv_rhs(q: torch.Tensor, limbs) -> torch.Tensor:
     chans = [split_limbs_i8(q[..., o, :], nl).movedim(-1, -3)
              for o, nl in enumerate(plan)]        # (..., nl, G, N) each
     return torch.cat(chans, dim=-3).flip(-1)
+
+
+def negacyclic_conv_i8(digits: torch.Tensor, q_limbs_flipped: torch.Tensor,
+                       limbs) -> torch.Tensor:
+    """External product against the conv form of the key (`prepare_conv_rhs`).
+
+    digits: (B, G, N) int8; q_limbs_flipped: (C, G, N) int8, one channel per
+    (output, limb) column, reversed along N.  Returns (B, O, N) int32:
+    sum_g digits[:, g] * q[g, o] mod X^N+1, mod 2^32, as the JAX package's
+    int8 convolution gives it.  Here the product is one float64 GEMM against
+    the negacyclic matrices of the unreversed channels: exact, since every
+    sum stays below (k+1)*l*N*128*128 < 2^31 (no convolution routine, so no
+    TF32 or FFT algorithm can enter).
+    """
+    B, G, N = digits.shape
+    C = q_limbs_flipped.shape[0]
+    plan = limbs if isinstance(limbs, tuple) else as_limb_plan(limbs, C // limbs)
+    m = negacyclic_matrix(q_limbs_flipped.flip(-1).to(torch.int32))  # (C, G, N_t, N_j)
+    w = m.permute(1, 2, 0, 3).reshape(G * N, C * N)
+    out = exact_matmul(digits.reshape(B, G * N), w).to(torch.int32)
+    return recombine_plan_i32(out.reshape(B, C, N), plan)
+
+
+def amat_geometry(N: int, block: int) -> "tuple[int, int, int]":
+    """(K, U, span) of the A-matrix at ring degree N and fine block `block`:
+    K = min(block, N), U = N // K, span = N + (U-1)*K."""
+    K = min(block, N)
+    U = N // K
+    return K, U, N + (U - 1) * K
+
+
+def prepare_amat(vv: torch.Tensor, block: int = 128,
+                 chunk: int | None = None) -> torch.Tensor:
+    """The A-matrix form of the key (CloudKey.bk_amat), in the port's layout.
+
+    vv: (n, G, C, 2N) int8 doubled limb generator (CloudKey.bk_tp) ->
+    (n, C, G, span, K) int8 with
+      A[s, c, g, i, kappa] = vv[s, g, c, (N - (U-1)K) - kappa + i],
+    the transpose of the last two axes of
+    ``peba1_tpu.ops.poly.prepare_amat``'s (n, C, G, K, span).  Step s's
+    Toeplitz weight of contraction row t = u*K + kappa and output column
+    (c, j) is A[s, c, g, j + (U-1-u)K, kappa], so the K contraction bytes of
+    one column within one coarse block u are contiguous (the CUDA kernel's
+    B-tile rows, csrc/fused_blind_rotate.cu).  Built `chunk` steps at a time
+    so that the intermediate stays near 1 GB (4.34 GB of output at
+    peba1_128_fast with K=128).
+    """
+    n, G, C, n2 = vv.shape
+    N = n2 // 2
+    K, U, span = amat_geometry(N, block)
+    if chunk is None:
+        chunk = max(1, min(n, 2**30 // (G * C * span * K)))
+    out = torch.empty((n, C, G, span, K), dtype=torch.int8, device=vv.device)
+    for s in range(0, n, chunk):
+        # Window w of unfold holds vv[w : w+K]; A's row i reads it backwards
+        # from (N - (U-1)K) + i = K + i, i.e. window 1 + i reversed.
+        win = vv[s:s + chunk].unfold(-1, K, 1)[..., 1:span + 1, :].flip(-1)
+        out[s:s + chunk].copy_(win.transpose(1, 2))
+    return out
+
+
+def extprod_amat_i8(digits: torch.Tensor, a_step: torch.Tensor, limbs,
+                    N: int) -> torch.Tensor:
+    """External product against one step of the A-matrix (`prepare_amat`).
+
+    digits: (B, G, N) int8; a_step: (C, G, span, K) int8.  Returns (B, O, N)
+    int32 mod 2^32, equal to ``peba1_tpu.ops.poly.extprod_amat_i8``: the
+    weights assembled from U row slices, one float64 GEMM (exact, see above).
+    """
+    B, G, _ = digits.shape
+    C, _, _, K = a_step.shape
+    plan = limbs if isinstance(limbs, tuple) else as_limb_plan(limbs, C // limbs)
+    U = N // K
+    w = torch.stack([a_step[:, :, (U - 1 - u) * K:(U - 1 - u) * K + N]
+                     for u in range(U)], dim=3)          # (C, G, N_j, U, K)
+    w = w.permute(0, 2, 1, 3, 4).reshape(C * N, G * N)   # row (c, j), column (g, t)
+    out = exact_matmul(digits.reshape(B, G * N), w.T).to(torch.int32)
+    return recombine_plan_i32(out.reshape(B, C, N), plan)
 
 
 def key_negacyclic_mul(key_bits: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

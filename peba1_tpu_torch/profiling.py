@@ -10,8 +10,11 @@ time the mean of a few calls after a warm-up, timed with CUDA events:
     (`cuda_kernels.cmux_step`, one step of ``bk_w``);
   * `peba1_128_fast_genf`: one whole blind rotation
     (`cuda_kernels.blind_rotate_gen_full`, all n steps in one launch) and one
-    whole bootstrap call.
-After the t2_gen and fast_genf lines, `torch.profiler` traces two bootstrap
+    whole bootstrap call;
+  * `peba1_128_fast` with `use_fused_cmux` (`FAST_FUSED`, the parameters of
+    the 1:N sweep path): the same two, the rotation being
+    `cuda_kernels.fused_blind_rotate` against the A-matrix key.
+After the t2_gen, fast_genf and fused lines, `torch.profiler` traces two bootstrap
 calls at `PROFILE_BATCH`, the authentication's mean rows per bootstrap call,
 and prints each kernel's share of the device time and the device's busy
 share of the host wall time.  The first line is the card's name and power
@@ -20,6 +23,7 @@ limit as nvidia-smi gives them.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -35,6 +39,7 @@ from .ops import bootstrap as bs
 from .ops import cuda_kernels
 from .params import PRESETS
 
+FAST_FUSED = dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True)
 BATCHES = (32, 128, 184, 512, 1024, 2048, 4096, 8192)
 PROFILE_BATCH = 184
 SEED = 0
@@ -90,16 +95,19 @@ def t2_w_times(ck, B: int, device: torch.device, seed: int) -> dict:
         lambda: cuda_kernels.cmux_step(acc, amt, ck.bk_w[:1], p), 5, device)}
 
 
-def genf_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
+def rotation_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
+    """One whole blind rotation through the parameters' whole-rotation kernel
+    (`blind_rotate_gen_full` on bk_tp or `fused_blind_rotate` on bk_amat),
+    and one bootstrap call."""
     p = ck.params
     rng = np.random.default_rng(seed + B)
     ct = _ciphertexts(sk, B, device, seed)
     amt = torch.as_tensor(rng.integers(0, 2 * p.N, (p.n + 1, B), dtype=np.int32),
                           device=device)
+    kernel, key = ((cuda_kernels.fused_blind_rotate, ck.bk_amat) if p.use_fused_cmux
+                   else (cuda_kernels.blind_rotate_gen_full, ck.bk_tp))
     return {"B": B,
-            "blind_rotate_ms": mean_ms(
-                lambda: cuda_kernels.blind_rotate_gen_full(amt, ck.bk_tp, gates.MU_1_8, p),
-                2, device),
+            "blind_rotate_ms": mean_ms(lambda: kernel(amt, key, gates.MU_1_8, p), 2, device),
             "bootstrap_ms": mean_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8),
                                     2, device)}
 
@@ -143,15 +151,19 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
         flush=True)
-    for name in ("peba1_128_t2_gen", "peba1_128_t2", "peba1_128_fast_genf"):
-        sk, ck = keys.keygen(generator(device, SEED), PRESETS[name], device)
+    paths = {"peba1_128_t2_gen": PRESETS["peba1_128_t2_gen"],
+             "peba1_128_t2": PRESETS["peba1_128_t2"],
+             "peba1_128_fast_genf": PRESETS["peba1_128_fast_genf"],
+             "peba1_128_fast_fused": FAST_FUSED}
+    for name, params in paths.items():
+        sk, ck = keys.keygen(generator(device, SEED), params, device)
         for B in BATCHES:
             if name == "peba1_128_t2":
                 times = t2_w_times(ck, B, device, SEED)
             elif name == "peba1_128_t2_gen":
                 times = t2_gen_times(ck, sk, B, device, SEED)
             else:
-                times = genf_times(ck, sk, B, device, SEED)
+                times = rotation_times(ck, sk, B, device, SEED)
             print(json.dumps({"params": name, **times}), flush=True)
         if name != "peba1_128_t2":
             print(json.dumps({"params": name,

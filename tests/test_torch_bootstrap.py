@@ -22,10 +22,15 @@ from peba1_tpu import gates as jgates
 from peba1_tpu import keys as jkeys
 from peba1_tpu import lwe as jlwe
 from peba1_tpu.ops import bootstrap as jbs
+from peba1_tpu.ops import poly as jpoly
 from peba1_tpu.params import TOY, TOY_FAST, TOY_NOISY, TOY_T2
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.ops import bootstrap as bs
 from peba1_tpu_torch.ops import cuda_kernels
+
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
 
 CASES = {
     "toy": TOY,
@@ -37,13 +42,20 @@ CASES = {
     "toy_fast_genf": dataclasses.replace(TOY_FAST, use_gen_step=True, use_gen_full=True),
     "toy_t2_extprod": dataclasses.replace(TOY_T2, use_fused_step=False,
                                           use_pallas_extprod=True),
+    "toy_fused": dataclasses.replace(TOY, use_fused_cmux=True),
+    "toy_fast_fused": dataclasses.replace(TOY_FAST, use_fused_cmux=True),
+    "toy_t2_fused": dataclasses.replace(TOY_T2, use_fused_cmux=True),
+    "toy_amat": dataclasses.replace(TOY, ext_backend="amat"),
+    "toy_conv": dataclasses.replace(TOY, ext_backend="conv"),
 }
 # case -> the kernel wrappers its blind rotation enters
 WRAPPERS = {"toy": set(), "toy_t2_gen": {"cmux_step_gen"},
             "toy_n256_gen": {"cmux_step_gen"}, "toy_fast": {"rotate_decompose"},
             "toy_t2": {"cmux_step"}, "toy_t2_stream": {"cmux_step"},
             "toy_fast_genf": {"blind_rotate_gen_full"},
-            "toy_t2_extprod": {"rotate_decompose", "extprod_recombine"}}
+            "toy_t2_extprod": {"rotate_decompose", "extprod_recombine"},
+            "toy_fused": {"fused_blind_rotate"}, "toy_fast_fused": {"fused_blind_rotate"},
+            "toy_t2_fused": {"fused_blind_rotate"}, "toy_amat": set(), "toy_conv": set()}
 # case family (the name before "_gen", "_stream", ...) -> the parameters its
 # JAX keygen runs under; TOY_T2 builds bk_w.
 FAMILIES = {"toy": TOY, "toy_t2": TOY_T2, "toy_n256": dataclasses.replace(TOY, N=256),
@@ -62,9 +74,15 @@ def _plain(base):
 
 
 def carry(p, ck):
+    """The JAX keyset's tensors into the port: bk_w and the A-matrix in
+    JAX's layouts (the A-matrix built by peba1_tpu's prepare_amat), bk_conv
+    as it is."""
     bk_w = None if ck.bk_w is None else np.array(ck.bk_w)
+    bk_amat = (np.array(jax.jit(jpoly.prepare_amat, static_argnames="block")(
+        ck.bk_tp, block=p.amat_block)) if keys.need_amat(p) else None)
     return keys.cloud_key_from_numpy(p, np.array(ck.bk_tp), np.array(ck.ks_table_limbs),
-                                     "cpu", bk_w=bk_w)
+                                     "cpu", bk_w=bk_w, bk_amat=bk_amat,
+                                     bk_conv=np.array(ck.bk_conv))
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,14 +104,16 @@ def family(name):
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
+    """A case's parameters, its family's JAX keyset and reference, the
+    keyset carried into the port (read only by the tests), its wrappers."""
     sk, ck, bits, tpre, ref, ref_wo_ks = family(family_of(request.param))
-    return (CASES[request.param], sk, ck, bits, tpre, ref, ref_wo_ks,
-            WRAPPERS[request.param])
+    p = CASES[request.param]
+    return p, sk, carry(p, ck), bits, tpre, ref, ref_wo_ks, WRAPPERS[request.param]
 
 
 def test_bootstrap_bit_equal_to_reference(case):
-    p, sk, ck, bits, tpre, ref, _, _ = case
-    out = bs.bootstrap(carry(p, ck), tpre, gates.MU_1_8)
+    p, sk, tck, bits, tpre, ref, _, _ = case
+    out = bs.bootstrap(tck, tpre, gates.MU_1_8)
     np.testing.assert_array_equal(np.asarray(ref.a), out.a.numpy())
     np.testing.assert_array_equal(np.asarray(ref.b), out.b.numpy())
     tsk = keys.secret_key_from_numpy(p, np.array(sk.lwe_key), np.array(sk.tlwe_key), "cpu")
@@ -101,8 +121,8 @@ def test_bootstrap_bit_equal_to_reference(case):
 
 
 def test_bootstrap_wo_ks_bit_equal_to_reference(case):
-    p, _, ck, _, tpre, _, (ra, rb), _ = case
-    ta, tb = bs.bootstrap_wo_ks(carry(p, ck), tpre, gates.MU_1_8)
+    p, _, tck, _, tpre, _, (ra, rb), _ = case
+    ta, tb = bs.bootstrap_wo_ks(tck, tpre, gates.MU_1_8)
     np.testing.assert_array_equal(np.asarray(ra), ta.numpy())
     np.testing.assert_array_equal(np.asarray(rb), tb.numpy())
 
@@ -110,18 +130,23 @@ def test_bootstrap_wo_ks_bit_equal_to_reference(case):
 def test_blind_rotate_enters_its_wrappers(case, monkeypatch):
     """Each configuration goes through the wrappers of the TPU kernels its
     JAX branch calls (the plain twins run inside them on the CPU), reading
-    the key form keys.active_bk_field names."""
-    p, _, ck, _, tpre, _, _, wrappers = case
+    only the key form keys.active_bk_field names (the others are dropped by
+    keys.slim_for_bootstrap)."""
+    p, _, tck, _, tpre, _, _, wrappers = case
     entered = set()
     for name in cuda_kernels.launches:
         def spy(*args, _name=name, _fn=getattr(cuda_kernels, name)):
             entered.add(_name)
             return _fn(*args)
         monkeypatch.setattr(cuda_kernels, name, spy)
-    tck = carry(p, ck)
-    assert (tck.bk_w is not None) == (keys.active_bk_field(p) == "bk_w")
-    bs.bootstrap_wo_ks(tck, lwe.Lwe(tpre.a[:3], tpre.b[:3]), gates.MU_1_8)
+    assert (tck.bk_w is not None) == keys.need_w(p)
+    assert (tck.bk_amat is not None) == keys.need_amat(p)
+    slim = keys.slim_for_bootstrap(tck)
+    assert [f for f in ("bk", "bk_conv", "bk_tp", "bk_amat", "bk_w")
+            if getattr(slim, f) is not None] == [keys.active_bk_field(p)]
+    bs.bootstrap_wo_ks(slim, lwe.Lwe(tpre.a[:3], tpre.b[:3]), gates.MU_1_8)
     assert entered == wrappers
+    assert (bs.selected_kernel(p) in wrappers) == (bs.selected_kernel(p) is not None)
 
 
 @pytest.fixture(scope="module")

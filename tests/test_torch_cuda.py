@@ -15,6 +15,7 @@ import torch
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.ops import bootstrap as bs
 from peba1_tpu_torch.ops import cuda_kernels as ck
+from peba1_tpu_torch.ops import poly
 from peba1_tpu_torch.params import PRESETS, TOY, TOY_FAST, TOY_T2
 
 
@@ -93,21 +94,69 @@ def test_w_kernels_match_plain(cuda_device, kernel, name, B):
     assert ck.launches[kernel] == before + (4 if kernel == "cmux_step" else 1)
 
 
+FUSED = {"fast": dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True),
+         "fast_k256": dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True,
+                                          amat_block=256),
+         "t2": dataclasses.replace(PRESETS["peba1_128_t2"], use_fused_step=False,
+                                   use_fused_cmux=True)}
+
+
+def random_amat(p, steps, seed, device):
+    """Random bytes in the A-matrix's shape (n, C, G, span, K)."""
+    K, _, span = poly.amat_geometry(p.N, p.amat_block)
+    G, C = (p.k + 1) * p.l, sum(p.limb_plan)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-128, 128, (steps, C, G, span, K), generator=gen,
+                         dtype=torch.int8, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,steps", [("fast", 1000, 3), ("fast_k256", 1000, 2),
+                                          ("t2", 67, 2)])
+def test_fused_blind_rotate_matches_plain(cuda_device, name, B, steps):
+    """One launch for the whole rotation, at U = 8 (K=128), U = 4 (K=256)
+    and k = 2; B=1000 is above one 64-row tile, so a missing grid barrier
+    would show."""
+    p = FUSED[name]
+    _, amt, _ = random_step_inputs(p, B, steps + 1, 8, cuda_device)
+    amat = random_amat(p, steps, 9, cuda_device)
+    mu = -(1 << 29) + 7
+    want = ck.fused_blind_rotate_plain(amt, amat, mu, p)
+    before = ck.launches["fused_blind_rotate"]
+    got = ck.fused_blind_rotate(amt, amat, mu, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches["fused_blind_rotate"] == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast", "peba1_128_t2_genf"])
-def test_unported_kernels_raise(cuda_device, name):
-    """Only use_fused_cmux, which no preset sets, still raises on the card."""
+def test_fused_path_runs(cuda_device, name):
+    """use_fused_cmux, which no preset sets, on any preset: blind_rotate
+    takes the fused branch first, with one kernel launch over all n steps,
+    equal to the plain twin."""
     p = dataclasses.replace(PRESETS[name], use_fused_cmux=True)
-    bara = torch.zeros((2, p.n), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="fused_blind_rotate"):
-        bs.blind_rotate(_NoKey(p), bara, bara[:, 0], 1)
+    stand_in = _AmatKey(p, random_amat(p, p.n, 10, cuda_device))
+    rng = np.random.default_rng(11)
+    bara = torch.as_tensor(rng.integers(0, 2 * p.N, (3, p.n), dtype=np.int32),
+                           device=cuda_device)
+    barb = torch.as_tensor(rng.integers(0, 2 * p.N, 3, dtype=np.int32), device=cuda_device)
+    before = dict(ck.launches)
+    got = bs.blind_rotate(stand_in, bara, barb, 12345)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ck.launches.items() if v != before[k]} == {
+        "fused_blind_rotate": 1}
+    amt = torch.cat([((2 * p.N - barb) % (2 * p.N))[None], bara.T]).to(torch.int32)
+    want = ck.fused_blind_rotate_plain(amt, stand_in.bk_amat, 12345, p)
+    assert torch.equal(got.reshape(3, -1), want)
 
 
-class _NoKey:
-    """A stand-in cloud key: blind_rotate must raise before reading a key."""
+class _AmatKey:
+    """A stand-in cloud key: the fused branch reads only the A-matrix."""
 
-    def __init__(self, params):
+    def __init__(self, params, bk_amat):
         self.params = params
+        self.bk_amat = bk_amat
 
 
 @pytest.mark.cuda
@@ -116,17 +165,21 @@ class _NoKey:
     dataclasses.replace(TOY, N=256, use_gen_step=True),
     TOY_FAST, TOY_T2, dataclasses.replace(TOY_T2, w_streaming=True),
     dataclasses.replace(TOY_FAST, use_gen_step=True, use_gen_full=True),
-    dataclasses.replace(TOY_T2, use_fused_step=False, use_pallas_extprod=True)],
+    dataclasses.replace(TOY_T2, use_fused_step=False, use_pallas_extprod=True),
+    dataclasses.replace(TOY_FAST, use_fused_cmux=True),
+    dataclasses.replace(TOY_T2, use_fused_cmux=True),
+    dataclasses.replace(TOY_FAST, N=256, use_fused_cmux=True)],
     ids=["toy_t2_gen", "toy_n256_gen", "toy_fast", "toy_t2", "toy_t2_stream",
-         "toy_fast_genf", "toy_t2_extprod"])
+         "toy_fast_genf", "toy_t2_extprod", "toy_fast_fused", "toy_t2_fused",
+         "toy_fast_n256_fused"])
 def test_bootstrap_on_the_card_equals_the_cpu(cuda_device, p):
     """The same key and ciphertext tensors: the kernel path on the card and
     the plain path on the CPU give the same bits."""
     sk, cpu_key = keys.keygen(torch.Generator().manual_seed(1), p, "cpu")
-    gpu_key = keys.CloudKey(bk_tp=cpu_key.bk_tp.to(cuda_device),
-                            ks_table_limbs=cpu_key.ks_table_limbs.to(cuda_device),
-                            params=p, bk_w=None if cpu_key.bk_w is None
-                            else cpu_key.bk_w.to(cuda_device))
+    gpu_key = dataclasses.replace(cpu_key, **{
+        f.name: getattr(cpu_key, f.name).to(cuda_device)
+        for f in dataclasses.fields(cpu_key)
+        if isinstance(getattr(cpu_key, f.name), torch.Tensor)})
     bits = np.arange(77) % 2
     ct = gates.encrypt_bits(torch.Generator().manual_seed(2), sk, bits)
     pre = lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8)

@@ -13,6 +13,10 @@ from peba1_tpu_torch import gates, keys
 from peba1_tpu_torch.backends import CipherBackend
 from peba1_tpu_torch.params import TOY
 
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
+
 A = np.array([0, 0, 1, 1])
 B = np.array([0, 1, 0, 1])
 TABLES = {

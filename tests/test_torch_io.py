@@ -12,11 +12,15 @@ import torch
 from peba1_tpu import keys as jkeys
 from peba1_tpu import lwe as jlwe
 from peba1_tpu.io import serial as jserial
-from peba1_tpu.params import TOY_T2
+from peba1_tpu.params import TOY, TOY_T2
 from peba1_tpu.ops import poly as jpoly
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.io import serial
 from peba1_tpu_torch.ops import bootstrap as bs
+
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
 
 P = dataclasses.replace(TOY_T2, use_gen_step=True)
 
@@ -99,3 +103,45 @@ def test_loaded_key_shapes_are_checked():
     with pytest.raises(ValueError):
         keys.cloud_key_from_numpy(P, np.zeros((P.n, 6, 11, 8), np.int8),
                                   np.zeros((1, 1), np.int8), "cpu")
+
+
+FUSED = dataclasses.replace(TOY, use_fused_cmux=True)
+
+
+def test_reference_fused_key_loads_with_bk_amat_rebuilt(tmp_path):
+    """Neither package stores bk_amat: the port rebuilds it on load, equal
+    (in its transposed layout) to the one JAX's keygen built, and carries
+    JAX's bk_conv as stored."""
+    sk, ck = jkeys.keygen(jax.random.PRNGKey(24), FUSED)
+    jserial.save_cloud_key(str(tmp_path / "ck.npz"), ck)
+    tck = serial.load_cloud_key(str(tmp_path / "ck.npz"), "cpu")
+    assert keys.need_amat(tck.params) and ck.bk_amat is not None and tck.bk_w is None
+    np.testing.assert_array_equal(tck.bk_amat.transpose(-1, -2).numpy(),
+                                  np.asarray(ck.bk_amat))
+    np.testing.assert_array_equal(tck.bk_conv.numpy(), np.asarray(ck.bk_conv))
+    tsk = keys.secret_key_from_numpy(FUSED, np.array(sk.lwe_key), np.array(sk.tlwe_key),
+                                     "cpu")
+    bits = np.arange(7) % 2
+    ct = gates.encrypt_bits(torch.Generator().manual_seed(5), tsk, bits)
+    out = bs.bootstrap(tck, lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8), gates.MU_1_8)
+    np.testing.assert_array_equal(gates.decrypt_bits(out, tsk).numpy(), bits)
+
+
+def test_port_fused_key_loads_in_the_reference(tmp_path):
+    sk, ck = keys.keygen(torch.Generator().manual_seed(25), FUSED, "cpu")
+    serial.save_cloud_key(str(tmp_path / "ck.npz"), ck)
+    jck = jserial.load_cloud_key(str(tmp_path / "ck.npz"))
+    np.testing.assert_array_equal(np.asarray(jck.bk_amat),
+                                  ck.bk_amat.transpose(-1, -2).numpy())
+    np.testing.assert_array_equal(np.asarray(jck.bk_conv), ck.bk_conv.numpy())
+    back = serial.load_cloud_key(str(tmp_path / "ck.npz"), "cpu")
+    assert torch.equal(back.bk_amat, ck.bk_amat) and torch.equal(back.bk_conv, ck.bk_conv)
+
+
+def test_ciphertext_meta_alone(tmp_path):
+    ct = lwe.Lwe(torch.arange(6, dtype=torch.int32).view(2, 3),
+                 torch.arange(2, dtype=torch.int32))
+    serial.save_ciphertext(str(tmp_path / "c.npz"), ct, {"chunk": 4})
+    assert serial.load_ciphertext_meta(str(tmp_path / "c.npz")) == {
+        "format_version": 1, "chunk": 4}
+    assert jserial.load_ciphertext_meta(str(tmp_path / "c.npz"))["chunk"] == 4

@@ -22,6 +22,10 @@ from peba1_tpu_torch import keys
 from peba1_tpu_torch.ops import cuda_kernels as ck
 from peba1_tpu_torch.ops import poly
 
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
+
 GEN = {"toy_t2": dataclasses.replace(TOY_T2, use_gen_step=True),
        "toy_n256": dataclasses.replace(TOY, N=256, use_gen_step=True)}
 W_PARAMS = {"toy_fast": TOY_FAST, "toy_t2": TOY_T2,

@@ -25,6 +25,10 @@ from peba1_tpu_torch.ops import poly as tpoly
 from peba1_tpu_torch.ops import rotate as trot
 from peba1_tpu_torch.params import PRESETS
 
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
+
 EXTREMES = np.array([-2**31, 2**31 - 1, 0, -1, 128, -128, 0x8080, 0x7F7F7F80,
                      -2139062144, 0x80, 2**31 - 128, -2**31 + 128], np.int64)
 PARAMS = {"toy": TOY, "toy_t2": TOY_T2, "ring_2048": PRESETS["ring_2048"]}

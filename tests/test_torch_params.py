@@ -7,7 +7,9 @@ import sys
 
 import pytest
 
+from peba1_tpu import keys as jkeys
 from peba1_tpu import params as jp
+from peba1_tpu_torch import keys as tkeys
 from peba1_tpu_torch import params as tp
 from peba1_tpu_torch.ops import bootstrap as tbs
 
@@ -29,24 +31,56 @@ def test_preset_names_and_protocol_equal():
 
 def test_import_leaves_jax_out():
     code = ("import sys, peba1_tpu_torch.protocol, peba1_tpu_torch.driver, "
-            "peba1_tpu_torch.io.serial, peba1_tpu_torch.conformance; "
+            "peba1_tpu_torch.io.serial, peba1_tpu_torch.conformance, "
+            "peba1_tpu_torch.sweep, peba1_tpu_torch.io.wire, "
+            "peba1_tpu_torch.utils.logging, peba1_tpu_torch.utils.artifacts, "
+            "peba1_tpu_torch.ops.cuda_kernels, peba1_tpu_torch.profiling; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'peba1_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+# The four use_fused_cmux configurations of scripts/diag.py:55-69.
+DIAG_FUSED = {
+    "l2_body3_fused": dataclasses.replace(tp.PEBA1_128, l=2, bgbit=8, bk_body_limbs=3,
+                                          use_fused_cmux=True),
+    "l2_body3_fused_k256": dataclasses.replace(tp.PEBA1_128, l=2, bgbit=8,
+                                               bk_body_limbs=3, use_fused_cmux=True,
+                                               amat_block=256),
+    "l3_fused": dataclasses.replace(tp.PEBA1_128, use_fused_cmux=True),
+    "t2_fused": dataclasses.replace(tp.PEBA1_128_T2, use_fused_step=False,
+                                    use_pallas_rotate=False, use_fused_cmux=True),
+}
+
+
+def _params(name):
+    if name == "fused_cmux":
+        return dataclasses.replace(tp.PEBA1_128_T2_GENF, use_fused_cmux=True)
+    return DIAG_FUSED[name] if name in DIAG_FUSED else tp.PRESETS[name]
+
+
 @pytest.mark.parametrize("name,kernel", [
-    ("peba1_128_t2_gen", None), ("peba1_128_fast_gen", None),
-    ("ring_2048_gen", None), ("peba1_128", None), ("ring_2048", None),
-    ("toy", None), ("peba1_128_t2_genf", None), ("peba1_128_fast_genf", None),
-    ("peba1_128_t2", None), ("peba1_128_fast", None), ("toy_fast", None),
-    ("peba1_128_t2_stream", None), ("peba1_128_fast_stream", None),
-    ("toy_t2", None), ("fused_cmux", "fused_blind_rotate")])
+    ("peba1_128_t2_gen", "cmux_step_gen"), ("peba1_128_fast_gen", "cmux_step_gen"),
+    ("ring_2048_gen", "cmux_step_gen"), ("peba1_128", None), ("ring_2048", None),
+    ("toy", None), ("peba1_128_t2_genf", "blind_rotate_gen_full"),
+    ("peba1_128_fast_genf", "blind_rotate_gen_full"),
+    ("peba1_128_t2", "cmux_step"), ("peba1_128_fast", None), ("toy_fast", None),
+    ("peba1_128_t2_stream", "cmux_step"), ("peba1_128_fast_stream", "cmux_step"),
+    ("toy_t2", "cmux_step"), ("fused_cmux", "fused_blind_rotate"),
+    ("l2_body3_fused", "fused_blind_rotate")])
 def test_unported_kernel_follows_the_reference_branch_order(name, kernel):
-    """On the card a preset runs only where its kernel is ported; the kernel
-    named is the one peba1_tpu's blind_rotate would select.  Only
-    use_fused_cmux, which no preset sets, selects one that is not."""
-    p = (dataclasses.replace(tp.PEBA1_128_T2_GENF, use_fused_cmux=True)
-         if name == "fused_cmux" else tp.PRESETS[name])
-    assert tbs.unported_kernel(p) == kernel
+    """ops/bootstrap.selected_kernel names the TPU kernel that peba1_tpu's
+    blind_rotate would run (None: the plain scan of steps); every one is
+    ported, so every configuration runs on the card."""
+    assert tbs.selected_kernel(_params(name)) == kernel
+
+
+@pytest.mark.parametrize("name", sorted(jp.PRESETS) + sorted(DIAG_FUSED))
+def test_key_forms_follow_the_reference(name):
+    """need_amat, need_w and active_bk_field: the JAX package's rules."""
+    p = _params(name)
+    jparams = jp.TfheParams(**dataclasses.asdict(p))
+    assert tkeys.need_amat(p) == jkeys.need_amat(jparams)
+    assert tkeys.need_w(p) == jkeys.need_w(jparams)
+    assert tkeys.active_bk_field(p) == jkeys.active_bk_field(jparams)

@@ -29,6 +29,10 @@ from peba1_tpu_torch.params import ProtocolParams
 from peba1_tpu_torch.protocol import ClientDevice, Server
 from peba1_tpu_torch.utils.bits import bits_to_int, int_to_bits
 
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores (5.7x slower).
+torch.set_num_threads(1)
+
 PROTO = ProtocolParams(nslots=2, bitsize=3, max_bitsize=9, mul_width=8, bound_match=4)
 P_GEN = dataclasses.replace(TOY_T2, use_gen_step=True)
 CORPUS = os.path.join(os.path.dirname(__file__), "data", "golden_corpus.json")
