@@ -6,7 +6,8 @@
 Builds the CUDA kernels from the sources in the checkout, then runs, each
 phase printing one JSON line:
   1. device: card name, count, and nvidia-smi's name and power limit;
-  2. build: every csrc/*.cu, one nvcc each, all at once;
+  2. build: every csrc/*.cu, one nvcc each, all at once; ptxas must report
+     no register spill in any kernel;
   3. kernel: every kernel against its plain PyTorch twin, bit-equal, on
      seeded random inputs at the main paths' shapes, with CUDA-event times of
      the kernel, of the twin and (for the GEMM kernels) of torch._int_mm on
@@ -53,15 +54,21 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core ops, 2 per MAC
 MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
 # (kernel, preset or fused_params() label, batch, steps): the shapes each
-# kernel meets on its path.
+# kernel meets on its path; 184 and 760 are the authentication's and the
+# sweep's mean rows a bootstrap call (757 rounded up to a multiple of 8, as
+# torch._int_mm needs).
 KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 8192, 3),
     ("cmux_step_gen", "peba1_128_t2_gen", 1000, 3),
     ("cmux_step_gen", "ring_2048_gen", 256, 2),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 760, 8),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 184, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 1000, 8),
+    ("blind_rotate_gen_full", "peba1_128_t2_genf", 760, 8),
+    ("blind_rotate_gen_full", "peba1_128_t2_genf", 184, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
     ("rotate_decompose", "peba1_128_t2", 1000, 1),
     ("rotate_decompose", "peba1_128_fast", 8192, 1),
@@ -74,7 +81,11 @@ KERNEL_CASES = (
     ("extprod_recombine", "peba1_128_fast", 1000, 1),
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused", 1000, 8),
+    ("fused_blind_rotate", "peba1_128_fast_fused", 760, 8),
+    ("fused_blind_rotate", "peba1_128_fast_fused", 184, 8),
     ("fused_blind_rotate", "peba1_128_t2_fused", 8192, 8),
+    ("fused_blind_rotate", "peba1_128_t2_fused", 760, 8),
+    ("fused_blind_rotate", "peba1_128_t2_fused", 184, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused_k256", 1000, 8),
 )
 STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step", "fused_blind_rotate")
@@ -82,7 +93,7 @@ STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step", "fused_bl
 KERNELS = {
     "cmux_step_gen": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
                       "peba1_tpu/ops/pallas_kernels.py:466"),
-    "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
+    "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/blind_rotate_gen_full.cu",
                               "peba1_tpu/ops/pallas_kernels.py:606"),
     "rotate_decompose": ("peba1_tpu_torch/csrc/cmux_step.cu",
                          "peba1_tpu/ops/pallas_kernels.py:659"),
@@ -191,6 +202,9 @@ def phase_build() -> dict:
         ptxas = lib.parent / f"{stem}.ptxas.txt"
         info[stem] = [ln.strip() for ln in ptxas.read_text().splitlines()
                       if "registers" in ln or "spill" in ln] if ptxas.exists() else []
+        spills = [ln for ln in info[stem] if "spill" in ln and
+                  not ln.endswith("0 bytes spill stores, 0 bytes spill loads")]
+        check(not spills, f"{stem}: ptxas reports register spills: {spills}")
     return {"phase": "build", "seconds": time.time() - t0, "ptxas": info}
 
 

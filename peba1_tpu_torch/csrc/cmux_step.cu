@@ -102,7 +102,7 @@ __device__ __forceinline__ void w_gemm_tile(uint32_t* out, const int8_t* digits,
     }
     __syncthreads();
   }
-  store_tile<NL, ADD, false>(out, accum, B, N, k1, o, m0, j0);
+  store_tile<NL, ADD>(out, accum, B, N, k1, o, m0, j0);
 }
 
 // grid (N/BN, ceil(B/BM), k+1); blockIdx.z is the output polynomial o.
@@ -130,7 +130,7 @@ __global__ void rotate_decompose_kernel(const uint32_t* acc, const int32_t* __re
                                         int8_t* digits, int N, int k1, int l,
                                         int bgbit, uint32_t offset) {
   extern __shared__ uint32_t row[];
-  rotate_decompose_row<true, false>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
+  rotate_decompose_row<true>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
                              blockIdx.y, N, k1, l, bgbit, offset, row);
 }
 

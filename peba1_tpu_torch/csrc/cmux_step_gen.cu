@@ -1,18 +1,15 @@
 // CMUX steps of blind rotation with each step's negacyclic Toeplitz weights
 // formed on the fly from the small doubled generator, for Hopper (sm_90a).
 // Built by peba1_tpu_torch/ops/cuda_kernels.py with nvcc into a shared
-// library with a plain C interface, bound with ctypes.  Two entry points:
+// library with a plain C interface, bound with ctypes.
 //
 // peba1_cmux_step_gen replaces peba1_tpu/ops/pallas_kernels.py cmux_step_gen
 // (_cmux_step_gen_kernel): for every batch row b and output polynomial o,
 //   acc[b, o] += sum_m (sum_{g,t} d[b,g,t] * vv[g, c0(o)+m, N-t+j]) << (8(4-nl)+8m)
 // where d are the gadget digits of X^amt[b]*acc[b] - acc[b].  The int8
 // products accumulate exactly in int32 because TfheParams bounds
-// (k+1)*l*N*128*128 < 2^31.
-//
-// peba1_blind_rotate_gen_full replaces pallas_kernels.blind_rotate_gen_full
-// (_gen_full_kernel): acc = [0 | X^amt0 * mu], then all n steps above, in one
-// launch.
+// (k+1)*l*N*128*128 < 2^31.  (The whole rotation on the same key,
+// blind_rotate_gen_full, is blind_rotate_gen_full.cu.)
 //
 // What bounds a step: the int8 GEMM, (B, G*N) x (G*N, C*N)
 // ((B,3072)x(3072,5632) at peba1_128_t2_gen), run on the tensor cores with
@@ -31,30 +28,20 @@
 // shared-memory load.
 //
 // Aliasing: no acc element is written before every digit of the step has
-// been produced (the contract of pallas_kernels.py:442-445).  In
-// peba1_cmux_step_gen a step is two launches, digits to a scratch buffer,
-// then the GEMM that adds into acc; the host loop over the steps runs here,
-// so a bootstrap is one ctypes call.  In the whole-rotation kernel the grid
-// is persistent and cooperative (every block resident at once): each step is
-// a digit phase over all (row, polynomial) pairs, a grid barrier, a GEMM
-// phase over all tiles, and a second grid barrier, because step s+1's
-// rotation of row b reads all (k+1)N coefficients of acc[b], which many
-// blocks write in step s.  The generator key (36-43 MB) streams from HBM/L2.
-
-#include <cooperative_groups.h>
+// been produced (the contract of pallas_kernels.py:442-445).  A step is two
+// launches, digits to a scratch buffer, then the GEMM that adds into acc;
+// the host loop over the steps runs here, so a bootstrap is one ctypes call.
 
 #include "common.cuh"
 
-namespace cg = cooperative_groups;
 using namespace peba1;
 
 namespace {
 
 // One GEMM tile against the generator: rows [m0, m0+BM) x output polynomial
 // o x coefficients [j0, j0+BN), all NL limb columns of o at once, added into
-// acc.  digits are in reversed coefficient order.  SHARED: other blocks of
-// the launch write acc and the digits (common.cuh).
-template <int NL, bool SHARED>
+// acc.  digits are in reversed coefficient order.
+template <int NL>
 __device__ __forceinline__ void gen_gemm_tile(uint32_t* acc, const int8_t* digits,
                                               const int8_t* vv, int B, int N,
                                               int G, int C, int c0, int o, int k1,
@@ -97,8 +84,8 @@ __device__ __forceinline__ void gen_gemm_tile(uint32_t* acc, const int8_t* digit
         const int row = m0 + r;
         int4 v = make_int4(0, 0, 0, 0);
         if (row < B)
-          v = load<SHARED>(reinterpret_cast<const int4*>(digits + (size_t)row * GN +
-                                                         g * N + k0 + chunk * 16));
+          v = __ldg(reinterpret_cast<const int4*>(digits + (size_t)row * GN +
+                                                  g * N + k0 + chunk * 16));
         *reinterpret_cast<int4*>(a_s + r * A_STRIDE + chunk * 16) = v;
       }
       __syncthreads();
@@ -130,11 +117,10 @@ __device__ __forceinline__ void gen_gemm_tile(uint32_t* acc, const int8_t* digit
       __syncthreads();
     }
   }
-  store_tile<NL, true, SHARED>(acc, accum, B, N, k1, o, m0, j0);
+  store_tile<NL, true>(acc, accum, B, N, k1, o, m0, j0);
 }
 
 // The tile of output polynomial o with its limb count as a template argument.
-template <bool SHARED>
 __device__ __forceinline__ void gen_gemm_tile_any(uint32_t* acc, const int8_t* digits,
                                                   const int8_t* vv, int B, int N, int k,
                                                   int l, int mask_limbs, int body_limbs,
@@ -147,10 +133,10 @@ __device__ __forceinline__ void gen_gemm_tile_any(uint32_t* acc, const int8_t* d
   int8_t* a_s = smem;
   int8_t* gen_s = smem + BM * A_STRIDE;
   switch (nl) {
-    case 1: gen_gemm_tile<1, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
-    case 2: gen_gemm_tile<2, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
-    case 3: gen_gemm_tile<3, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
-    default: gen_gemm_tile<4, SHARED>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    case 1: gen_gemm_tile<1>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    case 2: gen_gemm_tile<2>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    case 3: gen_gemm_tile<3>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
+    default: gen_gemm_tile<4>(acc, digits, vv, B, N, G, C, c0, o, k + 1, m0, j0, a_s, gen_s, gen_stride); break;
   }
 }
 
@@ -159,7 +145,7 @@ __global__ void rotate_decompose_kernel(const uint32_t* acc, const int32_t* __re
                                         int8_t* digits, int N, int k1, int l,
                                         int bgbit, uint32_t offset) {
   extern __shared__ uint32_t row[];
-  rotate_decompose_row<false, false>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
+  rotate_decompose_row<false>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
                               blockIdx.y, N, k1, l, bgbit, offset, row);
 }
 
@@ -169,46 +155,8 @@ __global__ void __launch_bounds__(THREADS)
                        const int8_t* __restrict__ vv, int B, int N, int k,
                        int l, int mask_limbs, int body_limbs, int gen_stride) {
   extern __shared__ __align__(16) int8_t smem[];
-  gen_gemm_tile_any<false>(acc, digits, vv, B, N, k, l, mask_limbs, body_limbs,
-                           blockIdx.z, blockIdx.y * BM, blockIdx.x * BN, smem, gen_stride);
-}
-
-// The whole rotation, one persistent cooperative grid.  amt is (n_steps+1, B):
-// row 0 the initial body rotation, row s+1 step s's rotation.
-__global__ void __launch_bounds__(THREADS)
-    blind_rotate_gen_full_kernel(uint32_t* acc, const int32_t* __restrict__ amt,
-                                 const int8_t* __restrict__ vv, int8_t* digits,
-                                 int B, int n_steps, int N, int k, int l, int bgbit,
-                                 uint32_t offset, int mask_limbs, int body_limbs,
-                                 int gen_stride, uint32_t mu) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) int8_t smem[];
-  const int k1 = k + 1, G = k1 * l, C = k * mask_limbs + body_limbs;
-
-  init_accumulator(acc, amt, B, N, k, mu);  // acc = [0 | X^amt0 * (mu, ..., mu)]
-  grid.sync();
-
-  const int tiles_j = N / BN, tiles_m = (B + BM - 1) / BM;
-  const int n_tiles = tiles_j * tiles_m * k1;
-  const size_t vv_step = (size_t)G * C * 2 * N;
-  for (int s = 0; s < n_steps; ++s) {
-    const int32_t* amt_s = amt + (size_t)(s + 1) * B;
-    for (int item = blockIdx.x; item < B * k1; item += gridDim.x) {
-      const int b = item / k1;
-      rotate_decompose_row<false, true>(acc, (uint32_t)amt_s[b], digits, b, item - b * k1,
-                                        N, k1, l, bgbit, offset,
-                                        reinterpret_cast<uint32_t*>(smem));
-      __syncthreads();  // smem is free for the block's next row
-    }
-    grid.sync();  // every digit of the step exists before any acc write
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int jt = tile % tiles_j, rest = tile / tiles_j;
-      gen_gemm_tile_any<true>(acc, digits, vv + s * vv_step, B, N, k, l, mask_limbs,
-                              body_limbs, rest / tiles_m, (rest % tiles_m) * BM, jt * BN,
-                              smem, gen_stride);
-    }
-    grid.sync();  // every acc write of the step lands before the next reads
-  }
+  gen_gemm_tile_any(acc, digits, vv, B, N, k, l, mask_limbs, body_limbs, blockIdx.z,
+                    blockIdx.y * BM, blockIdx.x * BN, smem, gen_stride);
 }
 
 int gen_stride_for(int N) { return ((N + BN + 4 + 127) / 128) * 128 + 32; }
@@ -246,39 +194,5 @@ extern "C" int peba1_cmux_step_gen(void* acc, const void* amt, const void* vv,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
-}
-
-// The whole blind rotation in one cooperative launch: acc (B, (k+1)*N) int32
-// is written (not read) as [0 | X^amt[0] * mu], then n_steps CMUX steps run on
-// it.  amt is (n_steps+1, B) int32, vv is (n_steps, G, C, 2N) int8, digits is
-// (B, G*N) int8 scratch.  The grid is the number of blocks that fit on the
-// card at once (occupancy x SMs), capped by the work.  Requires N % 64 == 0.
-extern "C" int peba1_blind_rotate_gen_full(void* acc, const void* amt, const void* vv,
-                                           void* digits, int B, int n_steps, int N,
-                                           int k, int l, int bgbit,
-                                           unsigned int offset, int mask_limbs,
-                                           int body_limbs, unsigned int mu,
-                                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int k1 = k + 1;
-  int gen_stride = gen_stride_for(N);
-  const int smem = gemm_smem(N) > N * 4 ? gemm_smem(N) : N * 4;
-  const int n_tiles = (N / BN) * ((B + BM - 1) / BM) * k1;
-  int grid = 0;
-  cudaError_t err = cooperative_grid(blind_rotate_gen_full_kernel, smem,
-                                     n_tiles > B * k1 ? n_tiles : B * k1, &grid);
-  if (err != cudaSuccess) return (int)err;
-
-  uint32_t* acc_p = static_cast<uint32_t*>(acc);
-  const int32_t* amt_p = static_cast<const int32_t*>(amt);
-  const int8_t* vv_p = static_cast<const int8_t*>(vv);
-  int8_t* digits_p = static_cast<int8_t*>(digits);
-  uint32_t offset_v = offset, mu_v = mu;
-  void* args[] = {&acc_p, &amt_p, &vv_p, &digits_p, &B, &n_steps, &N, &k, &l,
-                  &bgbit, &offset_v, &mask_limbs, &body_limbs, &gen_stride, &mu_v};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(blind_rotate_gen_full_kernel),
-                                    dim3(grid), dim3(THREADS), args, smem, st);
-  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,7 @@ of the same name:
   * `cmux_step_gen`: whole CMUX steps with the Toeplitz weights formed on the
     fly from the generator key ``bk_tp`` (``csrc/cmux_step_gen.cu``);
   * `blind_rotate_gen_full`: the whole blind rotation, accumulator set-up and
-    all n such steps, in one launch (``csrc/cmux_step_gen.cu``);
+    all n such steps, in one launch (``csrc/blind_rotate_gen_full.cu``);
   * `rotate_decompose`: rotate, difference and gadget digits in natural
     coefficient order (``csrc/cmux_step.cu``);
   * `extprod_recombine`: digits times one step's precomputed weights W, limb
@@ -16,20 +16,23 @@ of the same name:
   * `fused_blind_rotate`: the whole blind rotation against the precomputed
     A-matrix ``bk_amat``, in one launch (``csrc/fused_blind_rotate.cu``).
 
-Design notes are in the sources.  On a CPU tensor a wrapper runs its plain
-twin (``*_plain``, the same signature and result in plain PyTorch).  On a
-CUDA tensor it launches the kernel or raises; it never falls back.  Every
-``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first use into its
-own shared library, all at once, under the package's ``build/`` directory
-(keyed by one hash of every source and the flags; git ignores it), and bound
-with ctypes.  ``launches`` counts the CUDA kernel launches each wrapper makes:
-two per CMUX step for `cmux_step_gen` and `cmux_step`, one per call for the
-other four.
+Design notes are in the sources; the two whole-rotation kernels share
+``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory ring, split-K)
+and take their contraction split from `tile_plan`.  On a CPU tensor a
+wrapper runs its plain twin (``*_plain``, the same signature and result in
+plain PyTorch).  On a CUDA tensor it launches the kernel or raises; it never
+falls back.  Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
+first use into its own shared library, all at once, under the package's
+``build/`` directory (keyed by one hash of every source and the flags; git
+ignores it), and bound with ctypes.  ``launches`` counts the CUDA kernel
+launches each wrapper makes: two per CMUX step for `cmux_step_gen` and
+`cmux_step`, one per call for the other four.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -52,13 +55,13 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C entry point -> (library, argument types); every one returns a CUDA error.
 _ENTRIES = {
     "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
-    "peba1_blind_rotate_gen_full": ("cmux_step_gen",
-                                    [_P] * 4 + [_I] * 6 + [_U, _I, _I, _U, _P]),
+    "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
+                                    [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
     "peba1_rotate_decompose": ("cmux_step", [_P] * 3 + [_I] * 5 + [_U, _P]),
     "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 6 + [_P]),
     "peba1_cmux_step": ("cmux_step", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
     "peba1_fused_blind_rotate": ("fused_blind_rotate",
-                                 [_P] * 4 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
+                                 [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _I, _U, _P]),
 }
 
 launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
@@ -160,6 +163,75 @@ def _step_args(p: TfheParams) -> tuple:
     return (p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p), p.bk_limbs, p.bk_body_limbs)
 
 
+# --- the whole-rotation kernels' tile plan ----------------------------------
+
+BM_ROWS = 128      # batch rows of one work item (two 64-row wgmma warpgroups)
+BN_COLS = 64       # coefficients of one work item
+BK_BYTES = 128     # contraction bytes of one shared-memory stage
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How `blind_rotate_gen_full` and `fused_blind_rotate` cut one CMUX
+    step's GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
+    N/64 column tiles, each cut into `split` work items along the
+    contraction's `blocks` blocks (the G*U (g, u) blocks of the A-matrix, or
+    the G digit polynomials of the generator)."""
+
+    split: int
+    blocks: int
+    tiles: int
+
+    def blocks_of(self, sp: int) -> range:
+        """The contraction blocks of split `sp`, as the kernels walk them:
+        block b is (g, u) = divmod(b, U) for the A-matrix, g for the
+        generator."""
+        per = self.blocks // self.split
+        return range(sp * per, (sp + 1) * per)
+
+
+def contraction_blocks(params: TfheParams, kernel: str, K: int | None = None) -> int:
+    """The blocks that a split of `kernel`'s contraction may take: G*U
+    (g, u) blocks for fused_blind_rotate (U = N/K, K from
+    ``params.amat_block`` unless given), G digit polynomials for
+    blind_rotate_gen_full."""
+    G = (params.k + 1) * params.l
+    if kernel == "fused_blind_rotate":
+        K = K or poly.amat_geometry(params.N, params.amat_block)[0]
+        return G * (params.N // K)
+    if kernel == "blind_rotate_gen_full":
+        return G
+    raise ValueError(f"no tile plan for {kernel}")
+
+
+def tile_plan(B: int, params: TfheParams, kernel: str, sm_count: int,
+              K: int | None = None) -> TilePlan:
+    """The split of a step's contraction at batch B on a card of `sm_count`
+    SMs: the least divisor S of the contraction's blocks that gives at
+    least two work items per SM (every split adds its delta into acc with
+    an atomic add, so fewer is cheaper), or all the blocks when even that
+    is too few.  Rows are always tiled by 128: at every batch a step's
+    weight tiles cross from L2 into shared memory once per row tile, so a
+    smaller row tile only adds traffic; split-K, not smaller tiles, fills
+    the card at the protocol's small batches."""
+    p = params
+    tiles = -(-B // BM_ROWS) * (p.k + 1) * (p.N // BN_COLS)
+    blocks = contraction_blocks(p, kernel, K)
+    for s in range(1, blocks + 1):
+        if blocks % s == 0 and tiles * s >= 2 * sm_count:
+            return TilePlan(s, blocks, tiles)
+    return TilePlan(blocks, blocks, tiles)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_rotation_shapes(kernel: str, p: TfheParams) -> None:
+    if p.N % BK_BYTES:
+        raise ValueError(f"{kernel} kernel needs N % {BK_BYTES} == 0, got N={p.N}")
+
+
 # --- cmux_step_gen ---------------------------------------------------------
 
 def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
@@ -222,14 +294,17 @@ def blind_rotate_gen_full(amt: torch.Tensor, vv: torch.Tensor, mu: int,
                     vv=(vv, torch.int8, (S1 - 1, G, C, 2 * p.N)))
     if device.type == "cpu":
         return blind_rotate_gen_full_plain(amt, vv, mu, p)
+    _check_rotation_shapes("blind_rotate_gen_full", p)
     acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
     if B == 0:
         return acc
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
+    plan = tile_plan(B, p, "blind_rotate_gen_full", _sm_count(device))
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_blind_rotate_gen_full", device, acc.data_ptr(), amt.data_ptr(),
-            vv.data_ptr(), digits.data_ptr(), B, S1 - 1, N, k, l, bgbit, off, ml, bl,
-            mu & 0xFFFFFFFF)
+            vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S1 - 1, N, k, l,
+            bgbit, off, ml, bl, plan.split, mu & 0xFFFFFFFF)
     launches["blind_rotate_gen_full"] += 1
     return acc
 
@@ -381,16 +456,19 @@ def fused_blind_rotate(amt: torch.Tensor, amat: torch.Tensor, mu: int,
                     amat=(amat, torch.int8, (S1 - 1, C, G, span, K)))
     if device.type == "cpu":
         return fused_blind_rotate_plain(amt, amat, mu, p)
-    if K % 64:
-        raise ValueError(f"fused_blind_rotate kernel needs K % 64 == 0, got K={K}")
+    _check_rotation_shapes("fused_blind_rotate", p)
+    if K % BK_BYTES:
+        raise ValueError(f"fused_blind_rotate kernel needs K % {BK_BYTES} == 0, got K={K}")
     acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
     if B == 0:
         return acc
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
+    plan = tile_plan(B, p, "fused_blind_rotate", _sm_count(device), K)
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_fused_blind_rotate", device, acc.data_ptr(), amt.data_ptr(),
-            amat.data_ptr(), digits.data_ptr(), B, S1 - 1, N, k, l, bgbit, off, ml, bl,
-            K, mu & 0xFFFFFFFF)
+            amat.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S1 - 1, N, k, l,
+            bgbit, off, ml, bl, K, plan.split, mu & 0xFFFFFFFF)
     launches["fused_blind_rotate"] += 1
     return acc
 

@@ -1,0 +1,68 @@
+"""Whether the step kernels compile to the same machine code in two trees.
+
+    python -m peba1_tpu_torch.sass_diff build/parent
+
+Compiles ``csrc/cmux_step.cu`` and ``csrc/cmux_step_gen.cu`` (kernels 1, 3,
+4 and 5) of this tree and of another checkout with the flags of
+``ops/cuda_kernels.NVCC_FLAGS``, disassembles both with ``cuobjdump -sass``
+and compares each kernel's instructions (addresses, encodings and the
+anonymous-namespace hash of the file name left out).  Prints one line per
+kernel and exits non-zero if any differs.  Needs the CUDA toolkit, not a
+card.
+"""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from .ops.cuda_kernels import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+STEMS = ("cmux_step", "cmux_step_gen")
+
+
+def sass(root: str, stem: str, tag: str) -> "dict[str, list[str]]":
+    """{kernel name: instructions} of `root`'s csrc/<stem>.cu, built as
+    build/sass/<tag>_<stem>.so."""
+    out = BUILD_DIR / "sass" / f"{tag}_{stem}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out),
+                    str(Path(root) / "peba1_tpu_torch" / "csrc" / f"{stem}.cu")],
+                   check=True, capture_output=True)
+    cuobjdump = str(Path(nvcc).resolve().with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(out)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", m.group(1))
+            funcs[name] = []
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            funcs[name].append(line.split(";")[0].split("*/", 1)[1].strip())
+    return funcs
+
+
+def main() -> None:
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    here = str(Path(__file__).resolve().parent.parent)
+    same = True
+    for stem in STEMS:
+        theirs, ours = sass(sys.argv[1], stem, "theirs"), sass(here, stem, "ours")
+        for name, ins in ours.items():
+            equal = theirs.get(name) == ins
+            same &= equal
+            print(f"{stem}: {name}: {'identical' if equal else 'DIFFERS'} "
+                  f"({len(ins)} instructions here, {len(theirs.get(name, []))} there)")
+        gone = sorted(set(theirs) - set(ours))
+        if gone:
+            print(f"{stem}: only in {sys.argv[1]}: {', '.join(gone)}")
+    sys.exit(0 if same else 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -129,6 +129,59 @@ def test_fused_blind_rotate_matches_plain(cuda_device, name, B, steps):
     assert ck.launches["fused_blind_rotate"] == before + 1
 
 
+ROTATIONS = {"fast_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_fast_genf"]),
+             "t2_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_t2_genf"]),
+             "fast_fused": ("fused_blind_rotate", FUSED["fast"]),
+             "fast_fused_k256": ("fused_blind_rotate", FUSED["fast_k256"]),
+             "t2_fused": ("fused_blind_rotate", FUSED["t2"])}
+
+
+def rotation_inputs(name, B, steps, device):
+    kernel, p = ROTATIONS[name]
+    _, amt, vv = random_step_inputs(p, B, steps + 1, 13, device)
+    key = random_amat(p, steps, 14, device) if kernel == "fused_blind_rotate" \
+        else vv[:steps].contiguous()
+    return kernel, p, amt, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 67, 184, 760])
+@pytest.mark.parametrize("name", sorted(ROTATIONS))
+def test_rotation_kernels_at_protocol_batches(cuda_device, name, B):
+    """Both whole-rotation kernels at the batches whose tile plan splits the
+    contraction most (B=1, 67, 184) and at the sweep's rows (760, a ragged
+    last row tile), each against its plain twin."""
+    kernel, p, amt, key = rotation_inputs(name, B, 2, cuda_device)
+    mu = -(1 << 29) + 7
+    want = getattr(ck, kernel + "_plain")(amt, key, mu, p)
+    before = ck.launches[kernel]
+    got = getattr(ck, kernel)(amt, key, mu, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches[kernel] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ROTATIONS))
+def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
+    """Every block of the contraction its own work item, at a batch whose
+    plan would not split (B=1000 needs 2): the atomic adds of all splits
+    still give the plain twin's bits."""
+    kernel, p, amt, key = rotation_inputs(name, 1000, 2, cuda_device)
+    plan = ck.tile_plan
+
+    def largest(*args, **kw):
+        got = plan(*args, **kw)
+        return ck.TilePlan(got.blocks, got.blocks, got.tiles)
+
+    monkeypatch.setattr(ck, "tile_plan", largest)
+    mu = -(1 << 29) + 7
+    want = getattr(ck, kernel + "_plain")(amt, key, mu, p)
+    got = getattr(ck, kernel)(amt, key, mu, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast", "peba1_128_t2_genf"])
 def test_fused_path_runs(cuda_device, name):

@@ -1,0 +1,152 @@
+"""The split-K plan of the two whole-rotation kernels, and its arithmetic.
+
+`cuda_kernels.tile_plan` picks how many splits of a CMUX step's contraction
+`blind_rotate_gen_full` and `fused_blind_rotate` run; each split adds its
+recombined delta into the accumulator with an atomic add on the card.  Here,
+on the CPU: the plan for every configuration that runs either kernel covers
+each contraction block exactly once and follows its rule, and the per-split
+deltas, summed mod 2^32, are the unsplit external product bit for bit; one
+step built from them equals the Pallas kernels in interpret mode.  The CUDA
+kernels themselves are tested on the card by tests/test_torch_cuda.py and
+`python3 chip_smoke.py`.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import fused_params
+from peba1_tpu.ops import pallas_kernels as pk
+from peba1_tpu.ops import poly as jpoly
+from peba1_tpu.params import TOY_FAST, TOY_T2
+from peba1_tpu_torch.ops import cuda_kernels as ck
+from peba1_tpu_torch.ops import poly, rotate
+from peba1_tpu_torch.ops.bootstrap import selected_kernel
+from peba1_tpu_torch.params import PRESETS
+from peba1_tpu_torch.torus import wrap_i32
+
+# Toy sizes gain nothing from torch's intra-op threads; under several pytest
+# workers on one machine those threads oversubscribe the cores.
+torch.set_num_threads(1)
+
+ROTATION_KERNELS = ("blind_rotate_gen_full", "fused_blind_rotate")
+CONFIGS = {**{name: p for name, p in PRESETS.items() if selected_kernel(p) in ROTATION_KERNELS},
+           **fused_params()}
+BATCHES = (1, 67, 184, 760, 1000, 8192)
+SM_COUNTS = (132, 114)
+
+
+def test_every_rotation_configuration_is_planned():
+    assert {selected_kernel(p) for p in CONFIGS.values()} == set(ROTATION_KERNELS)
+    assert len(CONFIGS) == 5
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_tile_plan_covers_each_block_once_and_follows_its_rule(name, B, sms):
+    p = CONFIGS[name]
+    kernel = selected_kernel(p)
+    plan = ck.tile_plan(B, p, kernel, sms)
+    G = (p.k + 1) * p.l
+    K, U, _ = poly.amat_geometry(p.N, p.amat_block)
+    assert plan.tiles == -(-B // ck.BM_ROWS) * (p.k + 1) * (p.N // ck.BN_COLS)
+    assert plan.blocks == (G * U if kernel == "fused_blind_rotate" else G)
+    assert plan.blocks % plan.split == 0
+    # Each (g, u) block (each g for the generator) in exactly one split.
+    covered = [b for sp in range(plan.split) for b in plan.blocks_of(sp)]
+    assert sorted(covered) == list(range(plan.blocks))
+    if kernel == "fused_blind_rotate":
+        assert sorted(divmod(b, U) for b in covered) == [(g, u) for g in range(G)
+                                                         for u in range(U)]
+    # The rule: the least divisor giving two items per SM, else every block.
+    enough = [d for d in range(1, plan.blocks + 1)
+              if plan.blocks % d == 0 and plan.tiles * d >= 2 * sms]
+    assert plan.split == (enough[0] if enough else plan.blocks)
+
+
+def test_tile_plan_splits_the_protocol_batches():
+    """The authentication's 184 rows and the sweep's 760 are split; 8,192
+    rows fill the card unsplit."""
+    fast = fused_params()["peba1_128_fast_fused"]
+    genf = PRESETS["peba1_128_fast_genf"]
+    assert [ck.tile_plan(B, fast, "fused_blind_rotate", 132).split
+            for B in (184, 760, 8192)] == [8, 2, 1]
+    assert [ck.tile_plan(B, genf, "blind_rotate_gen_full", 132).split
+            for B in (184, 760, 8192)] == [4, 2, 1]
+
+
+# --- the arithmetic of the splits, at toy sizes -----------------------------
+
+STEP_CASES = {
+    "fused_toy_fast_u1": ("fused_blind_rotate", TOY_FAST),
+    "fused_toy_t2_u1": ("fused_blind_rotate", TOY_T2),
+    "fused_toy_fast_u2": ("fused_blind_rotate", dataclasses.replace(TOY_FAST, N=256)),
+    "genf_toy_fast": ("blind_rotate_gen_full", TOY_FAST),
+    "genf_toy_t2": ("blind_rotate_gen_full", TOY_T2),
+}
+BATCH = 11
+MU = -(1 << 29) + 12345
+prepare_amat = jax.jit(jpoly.prepare_amat, static_argnames="block")
+
+
+def split_delta(kernel, p, digits, key, plan, sp):
+    """The recombined delta of split `sp` alone: the digits outside its
+    blocks set to zero, then the plain external product."""
+    G = (p.k + 1) * p.l
+    K, U, _ = poly.amat_geometry(p.N, p.amat_block)
+    mask = torch.zeros((G, p.N), dtype=torch.bool)
+    for b in plan.blocks_of(sp):
+        if kernel == "fused_blind_rotate":
+            g, u = divmod(b, U)
+            mask[g, u * K:(u + 1) * K] = True
+        else:
+            mask[b] = True
+    d = torch.where(mask, digits, torch.zeros_like(digits))
+    if kernel == "fused_blind_rotate":
+        return poly.extprod_amat_i8(d, key, p.limb_plan, p.N)
+    return poly.extprod_toeplitz_i8(d, key, p.limb_plan)
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_split_deltas_sum_to_the_unsplit_step(name):
+    """For every split the plan can take, the per-split deltas summed with
+    int32 wraparound equal the unsplit product; acc plus that sum equals
+    one step of the Pallas kernel in interpret mode."""
+    kernel, p = STEP_CASES[name]
+    G, C = (p.k + 1) * p.l, sum(p.limb_plan)
+    rng = np.random.default_rng(21)
+    vv = rng.integers(-128, 128, (1, G, C, 2 * p.N)).astype(np.int8)
+    vv[0, 0, 0, :] = -128
+    amt = rng.integers(0, 2 * p.N, (2, BATCH)).astype(np.int32)
+    amt[:, :3] = [0, p.N, 2 * p.N - 1]
+    if kernel == "fused_blind_rotate":
+        jkey = prepare_amat(jnp.asarray(vv), block=p.amat_block)
+        key = torch.tensor(np.asarray(jkey)).transpose(-1, -2).contiguous()
+        want = pk.fused_blind_rotate(jnp.asarray(amt.T), jkey, jnp.int32(MU), p,
+                                     interpret=True)
+    else:
+        key = torch.as_tensor(vv)
+        want = pk.blind_rotate_gen_full(jnp.asarray(amt.T), jnp.asarray(vv), jnp.int32(MU), p,
+                                        interpret=True)
+    tamt = torch.as_tensor(amt)
+    acc = rotate.initial_accumulator(tamt[0], MU, p).view(BATCH, -1)
+    digits = ck.rotate_decompose_plain(acc, tamt[1], p).view(BATCH, G, p.N)
+    if kernel == "blind_rotate_gen_full":
+        whole = poly.extprod_toeplitz_i8(digits, key[0], p.limb_plan)
+    else:
+        whole = poly.extprod_amat_i8(digits, key[0], p.limb_plan, p.N)
+    blocks = ck.contraction_blocks(p, kernel)
+    for split in (s for s in range(1, blocks + 1) if blocks % s == 0):
+        plan = ck.TilePlan(split, blocks, 1)
+        total = sum(split_delta(kernel, p, digits, key[0], plan, sp).to(torch.int64)
+                    for sp in range(split))
+        np.testing.assert_array_equal(wrap_i32(total).numpy(), whole.numpy())
+    step = wrap_i32(acc.view(BATCH, p.k + 1, p.N).to(torch.int64) + whole)
+    np.testing.assert_array_equal(np.asarray(want), step.reshape(BATCH, -1).numpy())
+    got = getattr(ck, kernel)(tamt, key, MU, p)                 # the wrapper's CPU twin
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
