@@ -12,11 +12,13 @@ phase printing one JSON line:
      seeded random inputs at the main paths' shapes, with CUDA-event times of
      the kernel, of the twin and (for the GEMM kernels) of torch._int_mm on
      the same product, and the bound of each case;
-  4. gate and auth at peba1_128_t2_gen (the first slice's path): keygen on
-     the card, a chain of serialized AND(x, x) bootstraps at B=8192
-     (bench.py's measurement), decrypted, then full-width PEBA1
-     authentication (nslots=128, bitsize=8, bound 256), a genuine and an
-     impostor request in one Server.authenticate call;
+  4. gate and auth at peba1_128_t2_gen (the main path, one cmux_step_gen
+     launch per bootstrap call): keygen on the card, a chain of serialized
+     AND(x, x) bootstraps at B=8192 (bench.py's measurement), decrypted,
+     cmux_step_gen bit-equal to its plain twin over the full n at the
+     authentication's 184 rows, then full-width PEBA1 authentication
+     (nslots=128, bitsize=8, bound 256), a genuine and an impostor request
+     in one Server.authenticate call;
   5. the same at peba1_128_fast_genf (one blind_rotate_gen_full launch per
      bootstrap call), with the blind rotation bit-equal to the
      cmux_step_gen path on the same key at B=8192 and the full n;
@@ -58,9 +60,11 @@ MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
 # sweep's mean rows a bootstrap call (757 rounded up to a multiple of 8, as
 # torch._int_mm needs).
 KERNEL_CASES = (
-    ("cmux_step_gen", "peba1_128_t2_gen", 8192, 3),
-    ("cmux_step_gen", "peba1_128_t2_gen", 1000, 3),
-    ("cmux_step_gen", "ring_2048_gen", 256, 2),
+    ("cmux_step_gen", "peba1_128_t2_gen", 8192, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 1000, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 760, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
+    ("cmux_step_gen", "ring_2048_gen", 256, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 760, 8),
@@ -316,9 +320,9 @@ def expected_launches(p, calls: int) -> dict:
     from peba1_tpu_torch.ops.bootstrap import selected_kernel
     want = dict.fromkeys(cuda_kernels.launches, 0)
     kernel = selected_kernel(p)
-    if kernel in ("fused_blind_rotate", "blind_rotate_gen_full"):
+    if kernel in ("fused_blind_rotate", "blind_rotate_gen_full", "cmux_step_gen"):
         want[kernel] = calls                 # one launch a rotation
-    elif kernel in ("cmux_step_gen", "cmux_step"):
+    elif kernel == "cmux_step":
         want[kernel] = 2 * p.n * calls       # two launches a CMUX step
     else:
         want["rotate_decompose"] = p.n * calls if p.use_pallas_rotate else 0
@@ -400,6 +404,43 @@ def phase_rotation_equal(keyset, B: int, device, label: str, seed: int = 0) -> d
     return {"phase": "rotation_equal", "params": f"{label} vs use_gen_step",
             "kernel": bs.selected_kernel(p), "B": B, "steps": p.n,
             "mismatches": mismatches}
+
+
+def phase_step_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
+    """cmux_step_gen over the keyset's n steps (one launch) against its plain
+    twin, on the key and ciphertexts of a bootstrap call: bit-equal
+    accumulators.  Kernels 1 and 2 share their device code, so this holds
+    kernel 1 against a second, independent code; phase_rotation_equal does
+    not."""
+    import torch
+    from peba1_tpu_torch import gates
+    from peba1_tpu_torch.ops import cuda_kernels, rotate
+    sk, ck = keyset
+    p = ck.params
+    bits = np.random.default_rng(seed + 7).integers(0, 2, B)
+    ct = gates.encrypt_bits(torch.Generator(device=device).manual_seed(seed + 8), sk, bits)
+    bara = rotate.modswitch_2n(ct.a * 2, p.N)
+    barb = rotate.modswitch_2n(ct.b * 2 - gates.MU_1_8, p.N)
+    acc = rotate.initial_accumulator((2 * p.N - barb) % (2 * p.N), gates.MU_1_8, p)
+    amt = bara.T.contiguous()
+    t0 = time.time()
+    want = cuda_kernels.cmux_step_gen_plain(acc.clone(), amt, ck.bk_tp, p)
+    sync(device)
+    t_plain = time.time() - t0
+    before = cuda_kernels.launches["cmux_step_gen"]
+    t0 = time.time()
+    got = cuda_kernels.cmux_step_gen(acc.clone(), amt, ck.bk_tp, p)
+    sync(device)
+    dt = time.time() - t0
+    launches = cuda_kernels.launches["cmux_step_gen"] - before
+    mismatches = int((got != want).sum())
+    check(mismatches == 0, f"{label}: cmux_step_gen and its plain twin differ in "
+          f"{mismatches} places over {p.n} steps")
+    if torch_is_cuda(device):
+        check(launches == 1, f"{label}: cmux_step_gen launched {launches} times, want 1")
+    return {"phase": "step_equal", "params": label, "kernel": "cmux_step_gen", "B": B,
+            "steps": p.n, "mismatches": mismatches, "launches": launches,
+            "seconds": dt, "plain_seconds": t_plain}
 
 
 def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
@@ -622,6 +663,7 @@ def main() -> int:
 
         keyset, gate = phase_gate("peba1_128_t2_gen", 8192, 3, device)
         emit(gate)
+        emit(phase_step_equal(keyset, 184, device, "peba1_128_t2_gen"))
         auth = phase_auth(keyset, 128, 8, device, "peba1_128_t2_gen")
         emit(auth)
         path("auth peba1_128_t2_gen", auth["launches"], "cmux_step_gen")

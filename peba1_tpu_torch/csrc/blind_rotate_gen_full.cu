@@ -15,116 +15,14 @@
 // device memory: the TPU kernel assembles it in VMEM from the generator
 // key (36-43 MB, which here streams from L2); an SM has 227 KB, so the
 // skeleton is whole_rotation.cuh's, and each stage's weight tile is
-// expanded into the ring from the item's generator rows in shared memory.
-//
-// Toeplitz direction: with the digits in reversed coefficient order
-// (k = N-1-t), the weight is W'[k, j] = vv[1+k+j], so the K-major bytes of
-// column j over contraction bytes k0..k0+127 are the contiguous window
-// vv[1+j+k0 : 1+j+k0+128].  The producer warpgroup fetches the window of
-// generator bytes a work item reads (N + 80 bytes a limb) into shared memory
-// by cp.async, one unit ahead, and builds each 16-byte chunk of a column
-// from aligned 32-bit reads with funnel shifts (two reads a chunk: columns
-// four apart share words), stored at its 128-byte-swizzled place.  The
-// digit tile comes by TMA.  Split-K runs over the G digit polynomials.
+// expanded into the ring from the item's generator rows in shared memory
+// (gen_rotation.cuh, shared with cmux_step_gen.cu).
 
-#include "whole_rotation.cuh"
+#include "gen_rotation.cuh"
 
 using namespace peba1::rot;
 
 namespace {
-
-constexpr int PRODUCER_REGS = 88;  // registers a producer thread keeps
-
-// Bytes of one limb's generator window in shared memory: vv[j0 + y] for
-// y < N + 80, which covers every byte a tile reads (y <= N + 62) and the
-// next aligned word.
-__host__ __device__ __forceinline__ int window_bytes(int N) { return N + 80; }
-
-// Starts the asynchronous copy of the generator windows of the nl limb rows
-// at vv_rows (2N bytes apart) into win: 16-byte cp.async chunks, zeros past
-// the row's end.  The caller waits with cp.async.wait_all.
-__device__ __forceinline__ void fetch_window(uint32_t win, const int8_t* vv_rows, int nl,
-                                             int j0, int N, int ptid) {
-  const int chunks = window_bytes(N) / 16;
-  for (int idx = ptid; idx < nl * chunks; idx += 128) {
-    const int m = idx / chunks, c = idx - m * chunks;
-    const uint32_t dst = win + m * window_bytes(N) + 16 * c;
-    if (j0 + 16 * c < 2 * N) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-                   "l"(vv_rows + (size_t)m * 2 * N + j0 + 16 * c)
-                   : "memory");
-    } else {
-      sts128(dst, 0, 0, 0, 0);
-    }
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// The weight tile of contraction bytes h*128.. of polynomial g: chunk q of
-// limb m's column x is vv[1+j0+x+h*128+16q : +16], the five aligned window
-// words from byte (1+x+h*128+16q) & ~3 funnel-shifted by 8*((1+x) & 3),
-// stored at row x, chunk q ^ (x & 7).  Columns x, x+4, x+8, x+12 share that
-// shift and read overlapping words (the tile is Toeplitz), so a thread
-// builds those four chunks of one q from eight words.  Thread bits: [1:0]
-// x & 3, [2] q / 4, [4:3] which 16 columns, [6:5] q % 4; the 8 threads of a
-// store phase hit 8 different 16-byte bank groups.
-__device__ __forceinline__ void expand_tile(uint32_t b_tile, uint32_t win, int nl, int h,
-                                            int N, int ptid) {
-  const int x0 = (ptid & 3) + 16 * ((ptid >> 3) & 3);
-  const int q = ((ptid >> 5) & 3) + 4 * ((ptid >> 2) & 1);
-  const int p = 1 + x0 + h * BK + 16 * q, sh = 8 * (p & 3);
-  for (int m = 0; m < nl; ++m) {
-    const uint32_t w = win + m * window_bytes(N) + (p & ~3);
-    uint32_t v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = lds32(w + 4 * i);
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      const int x = x0 + 4 * d;
-      sts128(b_tile + m * LIMB_BYTES + x * BK + ((q ^ (x & 7)) << 4),
-             __funnelshift_r(v[d], v[d + 1], sh), __funnelshift_r(v[d + 1], v[d + 2], sh),
-             __funnelshift_r(v[d + 2], v[d + 3], sh), __funnelshift_r(v[d + 3], v[d + 4], sh));
-    }
-  }
-}
-
-// The producer warpgroup in one step: every stage of the block's work items.
-// The (item, g) units of the block run in order; each unit's generator
-// windows are fetched into one of two buffers while the unit before it is
-// expanded.
-__device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_map,
-                                             const int8_t* vv_s, uint32_t win, const Args& a) {
-  const int ptid = thread_idx() - 2 * 128;
-  const int G = (a.k + 1) * a.l, C = a.k * a.mask_limbs + a.body_limbs;
-  const int per_split = G / a.split;
-  const int n_units = (items_per_step(a) - blockIdx.x + gridDim.x - 1) / gridDim.x * per_split;
-  auto fetch = [&](int unit) {
-    const Item it = item_at(blockIdx.x + unit / per_split * gridDim.x, a);
-    const int g = it.split * per_split + unit % per_split;
-    fetch_window(win + (unit & 1) * 4 * window_bytes(a.N),
-                 vv_s + ((size_t)g * C + it.c0) * 2 * a.N, it.nl, it.j0, a.N, ptid);
-  };
-  if (n_units > 0) fetch(0);
-  for (int unit = 0; unit < n_units; ++unit) {
-    const Item it = item_at(blockIdx.x + unit / per_split * gridDim.x, a);
-    const int g = it.split * per_split + unit % per_split;
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    producer_sync();  // this unit's windows have landed; the other buffer is free
-    if (unit + 1 < n_units) fetch(unit + 1);
-    const uint32_t w = win + (unit & 1) * 4 * window_bytes(a.N);
-    for (int h = 0; h < a.N / BK; ++h) {
-      r.wait_empty();
-      if (ptid == 0) {
-        mbar_expect_tx(r.full(r.stage), A_BYTES);
-        tma_load_2d(r.a_tile(), digits_map, r.full(r.stage), g * a.N + h * BK, it.m0);
-      }
-      expand_tile(r.b_tile(), w, it.nl, h, a.N, ptid);
-      fence_proxy_async_shared();  // the generic stores, before wgmma reads them
-      mbar_arrive(r.full(r.stage));
-      r.advance();
-    }
-  }
-}
 
 // amt is (n_steps+1, B): row 0 the initial body rotation, row s+1 step s's
 // rotation; vv is (n_steps, G, C, 2N); digits_map views the (B, G*N) digits.
@@ -133,34 +31,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                  const int32_t* __restrict__ amt,
                                  const int8_t* __restrict__ vv, int8_t* digits,
                                  unsigned int* grid_bar, const Args a) {
-  extern __shared__ uint8_t smem[];
-  Ring r = make_ring(smem, a.stages, 128);  // every producer thread arrives
-  __syncthreads();
-  init_accumulator(acc, amt, a.B, a.N, a.k, a.mu);
-  const int G = (a.k + 1) * a.l, C = a.k * a.mask_limbs + a.body_limbs;
-  const int n_st = G / a.split * (a.N / BK);
-  const size_t vv_step = (size_t)G * C * 2 * a.N;
-  unsigned int bar = 0;
-  if (warpgroup() == 2) {
-    producer_registers<PRODUCER_REGS>();
-    grid_sync(grid_bar, bar);
-    for (int s = 0; s < a.n_steps; ++s) {
-      digit_phase<false>(acc, amt + (size_t)(s + 1) * a.B, digits, a);
-      grid_sync(grid_bar, bar);  // every digit of the step exists
-      fence_proxy_async_global();
-      produce_step(r, &digits_map, vv + s * vv_step, r.extra, a);
-      grid_sync(grid_bar, bar);  // every acc add of the step has landed
-    }
-  } else {  // consumer warpgroups 0 and 1
-    consumer_registers<PRODUCER_REGS>();
-    grid_sync(grid_bar, bar);
-    for (int s = 0; s < a.n_steps; ++s) {
-      digit_phase<false>(acc, amt + (size_t)(s + 1) * a.B, digits, a);
-      grid_sync(grid_bar, bar);
-      consume_step(r, acc, n_st, a);
-      grid_sync(grid_bar, bar);
-    }
-  }
+  gen_rotation<true>(&digits_map, acc, amt, vv, digits, grid_bar, a);
 }
 
 }  // namespace
@@ -176,21 +47,7 @@ extern "C" int peba1_blind_rotate_gen_full(void* acc, const void* amt, const voi
                                            unsigned int offset, int mask_limbs,
                                            int body_limbs, int split, unsigned int mu,
                                            void* stream) {
-  const int G = (k + 1) * l;
-  if (N % BK || split < 1 || G % split) return (int)cudaErrorInvalidValue;
-  const int extra = 2 * 4 * window_bytes(N);  // two buffers of up to four limbs
-  Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, split,
-         ring_stages(extra), mu};
-  if (a.stages == 0) return (int)cudaErrorInvalidConfiguration;
-  CUtensorMap digits_map{};
-  cudaError_t err = encode_map(&digits_map, digits, (uint64_t)B, (uint64_t)G * N, BM);
-  if (err != cudaSuccess) return (int)err;
-  uint32_t* acc_p = static_cast<uint32_t*>(acc);
-  const int32_t* amt_p = static_cast<const int32_t*>(amt);
-  const int8_t* vv_p = static_cast<const int8_t*>(vv);
-  int8_t* digits_p = static_cast<int8_t*>(digits);
-  unsigned int* bar_p = static_cast<unsigned int*>(grid_bar);
-  void* args[] = {&digits_map, &acc_p, &amt_p, &vv_p, &digits_p, &bar_p, &a};
-  return (int)launch_cooperative(blind_rotate_gen_full_kernel, ring_smem(a.stages, extra),
-                                 args, static_cast<cudaStream_t>(stream));
+  const Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, split, 0, mu};
+  return launch_gen_rotation(blind_rotate_gen_full_kernel, acc, amt, vv, digits, grid_bar, a,
+                             stream);
 }

@@ -130,8 +130,8 @@ __global__ void rotate_decompose_kernel(const uint32_t* acc, const int32_t* __re
                                         int8_t* digits, int N, int k1, int l,
                                         int bgbit, uint32_t offset) {
   extern __shared__ uint32_t row[];
-  rotate_decompose_row<true>(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
-                             blockIdx.y, N, k1, l, bgbit, offset, row);
+  rotate_decompose_row(acc, (uint32_t)amt[blockIdx.x], digits, blockIdx.x,
+                       blockIdx.y, N, k1, l, bgbit, offset, row);
 }
 
 void launch_rotate_decompose(const void* acc, const int32_t* amt, void* digits, int B,

@@ -1,10 +1,10 @@
-// Device code shared by the step kernels of csrc/ (cmux_step_gen.cu and
-// cmux_step.cu): the tile constants, the int8 tensor-core product, one row
-// of rotate + difference + gadget decomposition, and the limb-recombining
-// epilogue of a GEMM tile.  Each family keeps its GEMM tile in its own
-// source: made a template shared with the A-matrix tile, cmux_step.cu's W
-// tile measured 7-19% slower on an H100 (PERF.md, kernel 6's findings).  The
-// whole-rotation kernels have their own header, whole_rotation.cuh.
+// Device code of cmux_step.cu (kernels 3-5): the tile constants, the int8
+// tensor-core product, one row of rotate + difference + gadget
+// decomposition, and the limb-recombining epilogue of a GEMM tile.  Each
+// family keeps its GEMM tile in its own source: made a template shared with
+// the A-matrix tile, cmux_step.cu's W tile measured 7-19% slower on an H100
+// (PERF.md, kernel 6's findings).  The kernels that run many steps a launch
+// (1, 2 and 6) have their own header, whole_rotation.cuh.
 //
 // All arithmetic on torus values is uint32 (signed overflow is undefined in
 // C++).  No block of a launch writes what another block of it reads, so the
@@ -39,12 +39,10 @@ __device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
 }
 
 // Gadget digits of polynomial u of accumulator row b, rotated by a:
-// digit q of (X^a * acc[b,u])[t] - acc[b,u][t].  NATURAL order puts it at
-// digits[b, (u*l+q)*N + t] (the layout of pallas_kernels.rotate_decompose);
-// otherwise at (u*l+q)*N + N-1-t (the generator GEMM's reversed order).
-// Every thread of the block calls it; `row` is N uint32 of shared memory,
-// which the caller must not reuse before a __syncthreads().
-template <bool NATURAL>
+// digit q of (X^a * acc[b,u])[t] - acc[b,u][t], at digits[b, (u*l+q)*N + t]
+// (the layout of pallas_kernels.rotate_decompose).  Every thread of the
+// block calls it; `row` is N uint32 of shared memory, which the caller must
+// not reuse before a __syncthreads().
 __device__ __forceinline__ void rotate_decompose_row(
     const uint32_t* acc, uint32_t a, int8_t* digits, int b, int u, int N,
     int k1, int l, int bgbit, uint32_t offset, uint32_t* row) {
@@ -59,10 +57,9 @@ __device__ __forceinline__ void rotate_decompose_row(
     const uint32_t i = ((uint32_t)t - a) & (uint32_t)(2 * N - 1);
     const uint32_t rot = i < (uint32_t)N ? row[i] : 0u - row[i - N];
     const uint32_t v = rot - row[t] + offset;
-    const int pos = NATURAL ? t : N - 1 - t;
     for (int q = 0; q < l; ++q) {
       const int d = (int)((v >> (32 - (q + 1) * bgbit)) & bg_mask) - half_bg;
-      dst[(size_t)(u * l + q) * N + pos] = (int8_t)d;
+      dst[(size_t)(u * l + q) * N + t] = (int8_t)d;
     }
   }
 }

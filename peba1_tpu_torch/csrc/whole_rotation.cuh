@@ -1,9 +1,11 @@
-// Device code of the two whole-rotation kernels (blind_rotate_gen_full.cu and
-// fused_blind_rotate.cu) and nothing else: the other kernel families do not
-// include this header, so a change here cannot move them.
+// Device code of the kernels that run many CMUX steps in one launch:
+// fused_blind_rotate.cu (kernel 6) directly, blind_rotate_gen_full.cu and
+// cmux_step_gen.cu (kernels 2 and 1) through gen_rotation.cuh.  cmux_step.cu
+// (kernels 3-5) does not include it, so a change here cannot move those.
 //
-// One launch runs a whole blind rotation on a persistent cooperative grid of
-// one 384-thread block per SM.  Per CMUX step: a digit phase over every
+// One launch runs CMUX steps (a whole blind rotation, or kernel 1's S steps)
+// on a persistent cooperative grid of one 384-thread block per SM.  Per CMUX
+// step: a digit phase over every
 // (row, polynomial) pair, a grid barrier, a GEMM phase over every work item,
 // a second grid barrier.  A work item is BM = 128 batch rows x one output
 // polynomial o x 64 coefficients x one split of the contraction.
@@ -12,7 +14,7 @@
 //   * warpgroup 2, the producer, fills a ring of shared-memory stages.  A
 //     stage is 128 contraction bytes of the item: the digit tile (128 rows,
 //     by TMA) and the weight tile (nl*64 columns, by TMA in kernel 6,
-//     expanded from the generator in kernel 2), both K-major with the
+//     expanded from the generator in kernels 1 and 2), both K-major with the
 //     128-byte swizzle.  An mbarrier pair per stage (full: bytes and the
 //     producers' arrivals; empty: one arrival per consumer warp) orders it.
 //   * warpgroups 0 and 1, the consumers, own 64 rows each and run
@@ -59,7 +61,7 @@ struct Args {
   int B, n_steps, N, k, l, bgbit;
   uint32_t offset;
   int mask_limbs, body_limbs;
-  int K;        // A-matrix fine block (kernel 6); 0 in kernel 2
+  int K;        // A-matrix fine block (kernel 6); 0 in kernels 1 and 2
   int split;    // S: splits of the contraction
   int stages;   // ring depth
   uint32_t mu;
@@ -470,7 +472,7 @@ struct Ring {
 };
 
 // Carves the dynamic shared memory: the ring, then its barriers, then the
-// extra bytes (kernel 2's generator windows).  A full barrier completes on
+// extra bytes (the generator windows of kernels 1 and 2).  A full barrier completes on
 // `producers` arrivals and its transaction bytes.  Thread 0 initializes the
 // barriers; the caller synchronizes the block before using them.
 __device__ __forceinline__ Ring make_ring(uint8_t* smem_raw, int stages, int producers) {

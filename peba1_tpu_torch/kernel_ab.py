@@ -21,9 +21,10 @@ import os
 import subprocess
 import sys
 
-# (kernel, preset or chip_smoke.fused_params() label, batch, steps): the two
-# whole-rotation kernels at the sweep's (760) and the authentication's (184)
-# rows and at 8,192, and the other kernels at their largest smoke case.
+# (kernel, preset or chip_smoke.fused_params() label, batch, steps): the
+# kernels on csrc/whole_rotation.cuh at the sweep's (760) and the
+# authentication's (184) rows and at 8,192 (kernel 1 also at ring_2048_gen),
+# and the other kernels at their largest smoke case.
 CASES = (
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused", 760, 8),
@@ -37,7 +38,10 @@ CASES = (
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 760, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 184, 8),
-    ("cmux_step_gen", "peba1_128_t2_gen", 8192, 3),
+    ("cmux_step_gen", "peba1_128_t2_gen", 8192, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 760, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
+    ("cmux_step_gen", "ring_2048_gen", 256, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
     ("cmux_step", "peba1_128_t2", 8192, 2),
     ("extprod_recombine", "peba1_128_t2", 8192, 1),

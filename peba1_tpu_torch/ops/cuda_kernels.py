@@ -4,7 +4,8 @@ Six wrappers, each replacing one kernel of ``peba1_tpu/ops/pallas_kernels.py``
 of the same name:
 
   * `cmux_step_gen`: whole CMUX steps with the Toeplitz weights formed on the
-    fly from the generator key ``bk_tp`` (``csrc/cmux_step_gen.cu``);
+    fly from the generator key ``bk_tp``, all steps of a call in one launch
+    (``csrc/cmux_step_gen.cu``);
   * `blind_rotate_gen_full`: the whole blind rotation, accumulator set-up and
     all n such steps, in one launch (``csrc/blind_rotate_gen_full.cu``);
   * `rotate_decompose`: rotate, difference and gadget digits in natural
@@ -16,17 +17,18 @@ of the same name:
   * `fused_blind_rotate`: the whole blind rotation against the precomputed
     A-matrix ``bk_amat``, in one launch (``csrc/fused_blind_rotate.cu``).
 
-Design notes are in the sources; the two whole-rotation kernels share
-``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory ring, split-K)
-and take their contraction split from `tile_plan`.  On a CPU tensor a
+Design notes are in the sources; `cmux_step_gen` and the two whole-rotation
+kernels share ``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory
+ring, split-K; the first two through ``csrc/gen_rotation.cuh``) and take
+their contraction split from `tile_plan`.  On a CPU tensor a
 wrapper runs its plain twin (``*_plain``, the same signature and result in
 plain PyTorch).  On a CUDA tensor it launches the kernel or raises; it never
 falls back.  Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
 first use into its own shared library, all at once, under the package's
 ``build/`` directory (keyed by one hash of every source and the flags; git
 ignores it), and bound with ctypes.  ``launches`` counts the CUDA kernel
-launches each wrapper makes: two per CMUX step for `cmux_step_gen` and
-`cmux_step`, one per call for the other four.
+launches each wrapper makes: two per CMUX step for `cmux_step`, one per
+call for the other five.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C entry point -> (library, argument types); every one returns a CUDA error.
 _ENTRIES = {
-    "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
+    "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
                                     [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
     "peba1_rotate_decompose": ("cmux_step", [_P] * 3 + [_I] * 5 + [_U, _P]),
@@ -163,7 +165,7 @@ def _step_args(p: TfheParams) -> tuple:
     return (p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p), p.bk_limbs, p.bk_body_limbs)
 
 
-# --- the whole-rotation kernels' tile plan ----------------------------------
+# --- the tile plan of the kernels on csrc/whole_rotation.cuh ----------------
 
 BM_ROWS = 128      # batch rows of one work item (two 64-row wgmma warpgroups)
 BN_COLS = 64       # coefficients of one work item
@@ -172,8 +174,8 @@ BK_BYTES = 128     # contraction bytes of one shared-memory stage
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """How `blind_rotate_gen_full` and `fused_blind_rotate` cut one CMUX
-    step's GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
+    """How `cmux_step_gen`, `blind_rotate_gen_full` and `fused_blind_rotate`
+    cut one CMUX step's GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
     N/64 column tiles, each cut into `split` work items along the
     contraction's `blocks` blocks (the G*U (g, u) blocks of the A-matrix, or
     the G digit polynomials of the generator)."""
@@ -194,12 +196,12 @@ def contraction_blocks(params: TfheParams, kernel: str, K: int | None = None) ->
     """The blocks that a split of `kernel`'s contraction may take: G*U
     (g, u) blocks for fused_blind_rotate (U = N/K, K from
     ``params.amat_block`` unless given), G digit polynomials for
-    blind_rotate_gen_full."""
+    cmux_step_gen and blind_rotate_gen_full."""
     G = (params.k + 1) * params.l
     if kernel == "fused_blind_rotate":
         K = K or poly.amat_geometry(params.N, params.amat_block)[0]
         return G * (params.N // K)
-    if kernel == "blind_rotate_gen_full":
+    if kernel in ("cmux_step_gen", "blind_rotate_gen_full"):
         return G
     raise ValueError(f"no tile plan for {kernel}")
 
@@ -241,7 +243,8 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
     acc_flat: (B, (k+1)*N) int32; amt: (S, B) int32 rotations, taken mod 2N;
     vv: (S, G, C, 2N) int8, S steps of CloudKey.bk_tp.  Step s rotates,
     decomposes and multiplies by vv[s], then adds into acc, exactly as
-    ``peba1_tpu.ops.pallas_kernels.cmux_step_gen`` does.
+    ``peba1_tpu.ops.pallas_kernels.cmux_step_gen`` does.  One kernel launch
+    for all S steps.
     """
     p = params
     k1, G, C = _sizes(p)
@@ -251,13 +254,17 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
                     vv=(vv, torch.int8, (S, G, C, 2 * p.N)))
     if device.type == "cpu":
         return cmux_step_gen_plain(acc_flat, amt, vv, p)
+    _check_rotation_shapes("cmux_step_gen", p)
     if B == 0 or S == 0:
         return acc_flat
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
+    plan = tile_plan(B, p, "cmux_step_gen", _sm_count(device))
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_cmux_step_gen", device, acc_flat.data_ptr(), amt.data_ptr(),
-            vv.data_ptr(), digits.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl)
-    launches["cmux_step_gen"] += 2 * S      # two CUDA kernels a step
+            vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S, N, k, l, bgbit,
+            off, ml, bl, plan.split)
+    launches["cmux_step_gen"] += 1
     return acc_flat
 
 

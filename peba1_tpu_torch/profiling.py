@@ -4,8 +4,10 @@
 
 For each batch size B in `BATCHES` it prints one JSON line per path, each
 time the mean of a few calls after a warm-up, timed with CUDA events:
-  * `peba1_128_t2_gen`: one CMUX step (`ops/cuda_kernels.cmux_step_gen`, one
-    step of the cloud key), one keyswitch and one whole bootstrap call;
+  * `peba1_128_t2_gen`: a CMUX step (`ops/cuda_kernels.cmux_step_gen` over
+    `GEN_STEPS` steps of the cloud key in one call, divided by the steps),
+    the same step as a call of its own (one launch a step), one keyswitch
+    and one whole bootstrap call;
   * `peba1_128_t2`: one CMUX step against the precomputed weights
     (`cuda_kernels.cmux_step`, one step of ``bk_w``);
   * `peba1_128_fast_genf`: one whole blind rotation
@@ -42,6 +44,10 @@ from .params import PRESETS
 FAST_FUSED = dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True)
 BATCHES = (32, 128, 184, 512, 1024, 2048, 4096, 8192)
 PROFILE_BATCH = 184
+# Steps of one timed cmux_step_gen call: the kernel runs a call's steps in
+# one cooperative launch, whose start and barriers one step would carry
+# alone; a bootstrap call runs n = 630.
+GEN_STEPS = 8
 SEED = 0
 
 
@@ -74,12 +80,16 @@ def t2_gen_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:
     rng = np.random.default_rng(seed + B)
     ct = _ciphertexts(sk, B, device, seed)
     acc = _rand_i32(rng, (B, (p.k + 1) * p.N), device)
-    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (1, B), dtype=np.int32), device=device)
+    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (GEN_STEPS, B), dtype=np.int32),
+                          device=device)
     a_ext = _rand_i32(rng, (B, p.k * p.N), device)
     b_ext = a_ext[:, 0].clone()
     return {"B": B,
             "cmux_step_ms": mean_ms(
-                lambda: cuda_kernels.cmux_step_gen(acc, amt, ck.bk_tp[:1], p),
+                lambda: cuda_kernels.cmux_step_gen(acc, amt, ck.bk_tp[:GEN_STEPS], p),
+                5, device) / GEN_STEPS,
+            "cmux_step_alone_ms": mean_ms(
+                lambda: cuda_kernels.cmux_step_gen(acc, amt[:1], ck.bk_tp[:1], p),
                 5, device),
             "keyswitch_ms": mean_ms(lambda: bs.keyswitch(ck, a_ext, b_ext), 5, device),
             "bootstrap_ms": mean_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8),

@@ -1,9 +1,10 @@
-"""Whether the step kernels compile to the same machine code in two trees.
+"""Whether the kernels compile to the same machine code in two trees.
 
-    python -m peba1_tpu_torch.sass_diff build/parent
+    python -m peba1_tpu_torch.sass_diff build/parent                  # every csrc/*.cu
+    python -m peba1_tpu_torch.sass_diff build/parent cmux_step fused_blind_rotate
 
-Compiles ``csrc/cmux_step.cu`` and ``csrc/cmux_step_gen.cu`` (kernels 1, 3,
-4 and 5) of this tree and of another checkout with the flags of
+Compiles the named ``csrc/<stem>.cu`` (by default every source of this
+tree) of this tree and of another checkout with the flags of
 ``ops/cuda_kernels.NVCC_FLAGS``, disassembles both with ``cuobjdump -sass``
 and compares each kernel's instructions (addresses, encodings and the
 anonymous-namespace hash of the file name left out).  Prints one line per
@@ -18,9 +19,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from .ops.cuda_kernels import BUILD_DIR, NVCC_FLAGS, _nvcc
-
-STEMS = ("cmux_step", "cmux_step_gen")
+from .ops.cuda_kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
 
 
 def sass(root: str, stem: str, tag: str) -> "dict[str, list[str]]":
@@ -47,11 +46,12 @@ def sass(root: str, stem: str, tag: str) -> "dict[str, list[str]]":
 
 
 def main() -> None:
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         raise SystemExit(__doc__)
     here = str(Path(__file__).resolve().parent.parent)
+    stems = sys.argv[2:] or sorted(src.stem for src in CSRC.glob("*.cu"))
     same = True
-    for stem in STEMS:
+    for stem in stems:
         theirs, ours = sass(sys.argv[1], stem, "theirs"), sass(here, stem, "ours")
         for name, ins in ours.items():
             equal = theirs.get(name) == ins

@@ -49,7 +49,7 @@ def test_kernel_matches_plain(cuda_device, name, B):
     got = ck.cmux_step_gen(acc.clone(), amt, vv, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert ck.launches["cmux_step_gen"] == before + 2 * 2   # 2 steps, 2 kernels each
+    assert ck.launches["cmux_step_gen"] == before + 1       # both steps, one launch
 
 
 @pytest.mark.cuda
@@ -129,33 +129,45 @@ def test_fused_blind_rotate_matches_plain(cuda_device, name, B, steps):
     assert ck.launches["fused_blind_rotate"] == before + 1
 
 
+# The kernels on csrc/whole_rotation.cuh: the two whole rotations and
+# cmux_step_gen's steps on an incoming accumulator.
 ROTATIONS = {"fast_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_fast_genf"]),
              "t2_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_t2_genf"]),
              "fast_fused": ("fused_blind_rotate", FUSED["fast"]),
              "fast_fused_k256": ("fused_blind_rotate", FUSED["fast_k256"]),
-             "t2_fused": ("fused_blind_rotate", FUSED["t2"])}
+             "t2_fused": ("fused_blind_rotate", FUSED["t2"]),
+             "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"]),
+             "fast_gen": ("cmux_step_gen", PRESETS["peba1_128_fast_gen"]),
+             "ring_2048_gen": ("cmux_step_gen", PRESETS["ring_2048_gen"])}
 
 
 def rotation_inputs(name, B, steps, device):
+    """(kernel, params, the kernel's arguments before the params)."""
     kernel, p = ROTATIONS[name]
-    _, amt, vv = random_step_inputs(p, B, steps + 1, 13, device)
+    acc, amt, vv = random_step_inputs(p, B, steps + 1, 13, device)
+    if kernel == "cmux_step_gen":
+        return kernel, p, (acc, amt[1:].contiguous(), vv[:steps].contiguous())
     key = random_amat(p, steps, 14, device) if kernel == "fused_blind_rotate" \
         else vv[:steps].contiguous()
-    return kernel, p, amt, key
+    return kernel, p, (amt, key, -(1 << 29) + 7)
+
+
+def call(fn, args, p):
+    """fn on copies of the tensor arguments (cmux_step_gen updates acc in place)."""
+    return fn(*[a.clone() if isinstance(a, torch.Tensor) else a for a in args], p)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 67, 184, 760])
 @pytest.mark.parametrize("name", sorted(ROTATIONS))
 def test_rotation_kernels_at_protocol_batches(cuda_device, name, B):
-    """Both whole-rotation kernels at the batches whose tile plan splits the
-    contraction most (B=1, 67, 184) and at the sweep's rows (760, a ragged
-    last row tile), each against its plain twin."""
-    kernel, p, amt, key = rotation_inputs(name, B, 2, cuda_device)
-    mu = -(1 << 29) + 7
-    want = getattr(ck, kernel + "_plain")(amt, key, mu, p)
+    """The kernels on the whole-rotation skeleton at the batches whose tile
+    plan splits the contraction most (B=1, 67, 184) and at the sweep's rows
+    (760, a ragged last row tile), each against its plain twin."""
+    kernel, p, args = rotation_inputs(name, B, 2, cuda_device)
+    want = call(getattr(ck, kernel + "_plain"), args, p)
     before = ck.launches[kernel]
-    got = getattr(ck, kernel)(amt, key, mu, p)
+    got = call(getattr(ck, kernel), args, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert ck.launches[kernel] == before + 1
@@ -167,7 +179,7 @@ def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
     """Every block of the contraction its own work item, at a batch whose
     plan would not split (B=1000 needs 2): the atomic adds of all splits
     still give the plain twin's bits."""
-    kernel, p, amt, key = rotation_inputs(name, 1000, 2, cuda_device)
+    kernel, p, inputs = rotation_inputs(name, 1000, 2, cuda_device)
     plan = ck.tile_plan
 
     def largest(*args, **kw):
@@ -175,9 +187,8 @@ def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
         return ck.TilePlan(got.blocks, got.blocks, got.tiles)
 
     monkeypatch.setattr(ck, "tile_plan", largest)
-    mu = -(1 << 29) + 7
-    want = getattr(ck, kernel + "_plain")(amt, key, mu, p)
-    got = getattr(ck, kernel)(amt, key, mu, p)
+    want = call(getattr(ck, kernel + "_plain"), inputs, p)
+    got = call(getattr(ck, kernel), inputs, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 

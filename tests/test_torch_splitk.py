@@ -1,14 +1,16 @@
-"""The split-K plan of the two whole-rotation kernels, and its arithmetic.
+"""The split-K plan of the kernels on the whole-rotation skeleton, and its
+arithmetic.
 
 `cuda_kernels.tile_plan` picks how many splits of a CMUX step's contraction
-`blind_rotate_gen_full` and `fused_blind_rotate` run; each split adds its
-recombined delta into the accumulator with an atomic add on the card.  Here,
-on the CPU: the plan for every configuration that runs either kernel covers
-each contraction block exactly once and follows its rule, and the per-split
-deltas, summed mod 2^32, are the unsplit external product bit for bit; one
-step built from them equals the Pallas kernels in interpret mode.  The CUDA
-kernels themselves are tested on the card by tests/test_torch_cuda.py and
-`python3 chip_smoke.py`.
+`cmux_step_gen`, `blind_rotate_gen_full` and `fused_blind_rotate` run; each
+split adds its recombined delta into the accumulator with an atomic add on
+the card.  Here, on the CPU: the plan for every configuration that runs one
+of them covers each contraction block exactly once and follows its rule,
+and the per-split deltas, summed mod 2^32, are the unsplit external product
+bit for bit; one step built from them equals the Pallas kernels in
+interpret mode.  Each of these kernels is one launch a bootstrap call, as
+`chip_smoke.expected_launches` counts it.  The CUDA kernels themselves are
+tested on the card by tests/test_torch_cuda.py and `python3 chip_smoke.py`.
 """
 
 import dataclasses
@@ -19,10 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fused_params
+from chip_smoke import expected_launches, fused_params
 from peba1_tpu.ops import pallas_kernels as pk
 from peba1_tpu.ops import poly as jpoly
-from peba1_tpu.params import TOY_FAST, TOY_T2
+from peba1_tpu.params import TOY, TOY_FAST, TOY_T2
 from peba1_tpu_torch.ops import cuda_kernels as ck
 from peba1_tpu_torch.ops import poly, rotate
 from peba1_tpu_torch.ops.bootstrap import selected_kernel
@@ -33,7 +35,7 @@ from peba1_tpu_torch.torus import wrap_i32
 # workers on one machine those threads oversubscribe the cores.
 torch.set_num_threads(1)
 
-ROTATION_KERNELS = ("blind_rotate_gen_full", "fused_blind_rotate")
+ROTATION_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "fused_blind_rotate")
 CONFIGS = {**{name: p for name, p in PRESETS.items() if selected_kernel(p) in ROTATION_KERNELS},
            **fused_params()}
 BATCHES = (1, 67, 184, 760, 1000, 8192)
@@ -42,7 +44,7 @@ SM_COUNTS = (132, 114)
 
 def test_every_rotation_configuration_is_planned():
     assert {selected_kernel(p) for p in CONFIGS.values()} == set(ROTATION_KERNELS)
-    assert len(CONFIGS) == 5
+    assert len(CONFIGS) == 8
 
 
 @pytest.mark.parametrize("sms", SM_COUNTS)
@@ -74,10 +76,24 @@ def test_tile_plan_splits_the_protocol_batches():
     rows fill the card unsplit."""
     fast = fused_params()["peba1_128_fast_fused"]
     genf = PRESETS["peba1_128_fast_genf"]
+    t2_gen = PRESETS["peba1_128_t2_gen"]
     assert [ck.tile_plan(B, fast, "fused_blind_rotate", 132).split
             for B in (184, 760, 8192)] == [8, 2, 1]
     assert [ck.tile_plan(B, genf, "blind_rotate_gen_full", 132).split
             for B in (184, 760, 8192)] == [4, 2, 1]
+    # k=2: G = 6 digit polynomials; 184 rows are 2 x 3 x 8 = 48 tiles.
+    assert [ck.tile_plan(B, t2_gen, "cmux_step_gen", 132).split
+            for B in (184, 760, 8192)] == [6, 2, 1]
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_expected_launches_is_one_a_bootstrap_call(name):
+    """The smoke's launch count for every configuration on the skeleton:
+    its kernel once per bootstrap call, every other kernel never."""
+    p = CONFIGS[name]
+    want = dict.fromkeys(ck.launches, 0)
+    want[selected_kernel(p)] = 7
+    assert expected_launches(p, 7) == want
 
 
 # --- the arithmetic of the splits, at toy sizes -----------------------------
@@ -88,6 +104,8 @@ STEP_CASES = {
     "fused_toy_fast_u2": ("fused_blind_rotate", dataclasses.replace(TOY_FAST, N=256)),
     "genf_toy_fast": ("blind_rotate_gen_full", TOY_FAST),
     "genf_toy_t2": ("blind_rotate_gen_full", TOY_T2),
+    "gen_toy_t2": ("cmux_step_gen", dataclasses.replace(TOY_T2, use_gen_step=True)),
+    "gen_toy_n256": ("cmux_step_gen", dataclasses.replace(TOY, N=256, use_gen_step=True)),
 }
 BATCH = 11
 MU = -(1 << 29) + 12345
@@ -116,7 +134,8 @@ def split_delta(kernel, p, digits, key, plan, sp):
 def test_split_deltas_sum_to_the_unsplit_step(name):
     """For every split the plan can take, the per-split deltas summed with
     int32 wraparound equal the unsplit product; acc plus that sum equals
-    one step of the Pallas kernel in interpret mode."""
+    one step of the Pallas kernel in interpret mode (the whole rotation cut
+    to one step, or cmux_step_gen on the same starting accumulator)."""
     kernel, p = STEP_CASES[name]
     G, C = (p.k + 1) * p.l, sum(p.limb_plan)
     rng = np.random.default_rng(21)
@@ -124,22 +143,26 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
     vv[0, 0, 0, :] = -128
     amt = rng.integers(0, 2 * p.N, (2, BATCH)).astype(np.int32)
     amt[:, :3] = [0, p.N, 2 * p.N - 1]
+    tamt = torch.as_tensor(amt)
+    acc = rotate.initial_accumulator(tamt[0], MU, p).view(BATCH, -1)
     if kernel == "fused_blind_rotate":
         jkey = prepare_amat(jnp.asarray(vv), block=p.amat_block)
         key = torch.tensor(np.asarray(jkey)).transpose(-1, -2).contiguous()
         want = pk.fused_blind_rotate(jnp.asarray(amt.T), jkey, jnp.int32(MU), p,
                                      interpret=True)
-    else:
+    elif kernel == "blind_rotate_gen_full":
         key = torch.as_tensor(vv)
         want = pk.blind_rotate_gen_full(jnp.asarray(amt.T), jnp.asarray(vv), jnp.int32(MU), p,
                                         interpret=True)
-    tamt = torch.as_tensor(amt)
-    acc = rotate.initial_accumulator(tamt[0], MU, p).view(BATCH, -1)
-    digits = ck.rotate_decompose_plain(acc, tamt[1], p).view(BATCH, G, p.N)
-    if kernel == "blind_rotate_gen_full":
-        whole = poly.extprod_toeplitz_i8(digits, key[0], p.limb_plan)
     else:
+        key = torch.as_tensor(vv)
+        want = pk.cmux_step_gen(jnp.asarray(acc.numpy()), jnp.asarray(amt[1]),
+                                jnp.asarray(vv[0]), p, interpret=True)
+    digits = ck.rotate_decompose_plain(acc, tamt[1], p).view(BATCH, G, p.N)
+    if kernel == "fused_blind_rotate":
         whole = poly.extprod_amat_i8(digits, key[0], p.limb_plan, p.N)
+    else:
+        whole = poly.extprod_toeplitz_i8(digits, key[0], p.limb_plan)
     blocks = ck.contraction_blocks(p, kernel)
     for split in (s for s in range(1, blocks + 1) if blocks % s == 0):
         plan = ck.TilePlan(split, blocks, 1)
@@ -148,5 +171,8 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
         np.testing.assert_array_equal(wrap_i32(total).numpy(), whole.numpy())
     step = wrap_i32(acc.view(BATCH, p.k + 1, p.N).to(torch.int64) + whole)
     np.testing.assert_array_equal(np.asarray(want), step.reshape(BATCH, -1).numpy())
-    got = getattr(ck, kernel)(tamt, key, MU, p)                 # the wrapper's CPU twin
+    if kernel == "cmux_step_gen":                               # the wrapper's CPU twin
+        got = ck.cmux_step_gen(acc.clone(), tamt[1:], key, p)
+    else:
+        got = getattr(ck, kernel)(tamt, key, MU, p)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
