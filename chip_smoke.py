@@ -10,8 +10,9 @@ phase printing one JSON line:
      no register spill in any kernel;
   3. kernel: every kernel against its plain PyTorch twin, bit-equal, on
      seeded random inputs at the main paths' shapes, with CUDA-event times of
-     the kernel, of the twin and (for the GEMM kernels) of torch._int_mm on
-     the same product, and the bound of each case;
+     the kernel (calls in a row, and on the card alone), of the twin and (for
+     the GEMM kernels) of torch._int_mm on the same product, and the bound
+     of each case;
   4. gate and auth at peba1_128_t2_gen (the main path, one cmux_step_gen
      launch per bootstrap call): keygen on the card, a chain of serialized
      AND(x, x) bootstraps at B=8192 (bench.py's measurement), decrypted,
@@ -22,9 +23,14 @@ phase printing one JSON line:
   5. the same at peba1_128_fast_genf (one blind_rotate_gen_full launch per
      bootstrap call), with the blind rotation bit-equal to the
      cmux_step_gen path on the same key at B=8192 and the full n;
-  6. gate chains at peba1_128_t2 (cmux_step against bk_w), peba1_128_fast
-     (rotate_decompose and the float64 Toeplitz GEMM) and peba1_128_t2 with
-     use_pallas_extprod (rotate_decompose and extprod_recombine);
+  6. at peba1_128_t2 (one cmux_step launch per bootstrap call, against
+     bk_w): a gate chain at B=8192, cmux_step bit-equal to its plain twin
+     over the full n at 184 rows, the rotation bit-equal to the
+     cmux_step_gen path on the same key at B=8192, and a gate chain on the
+     same key with w_streaming (one cmux_step call a step, W built from
+     bk_tp); then gate chains at peba1_128_fast (rotate_decompose and the
+     float64 Toeplitz GEMM) and peba1_128_t2 with use_pallas_extprod
+     (rotate_decompose and extprod_recombine);
   7. peba1_128_fast with use_fused_cmux (one fused_blind_rotate launch per
      bootstrap call, against the A-matrix key bk_amat): a gate chain at
      B=8192, the rotation bit-equal to the cmux_step_gen path on the same
@@ -77,10 +83,13 @@ KERNEL_CASES = (
     ("rotate_decompose", "peba1_128_t2", 1000, 1),
     ("rotate_decompose", "peba1_128_fast", 8192, 1),
     ("rotate_decompose", "peba1_128_fast", 1000, 1),
-    ("cmux_step", "peba1_128_t2", 8192, 2),
-    ("cmux_step", "peba1_128_t2", 1000, 2),
-    ("cmux_step", "peba1_128_fast", 1000, 2),
+    ("cmux_step", "peba1_128_t2", 8192, 8),
+    ("cmux_step", "peba1_128_t2", 1000, 8),
+    ("cmux_step", "peba1_128_t2", 760, 8),
+    ("cmux_step", "peba1_128_t2", 184, 8),
+    ("cmux_step", "peba1_128_fast", 1000, 8),
     ("extprod_recombine", "peba1_128_t2", 8192, 1),
+    ("extprod_recombine", "peba1_128_t2", 2048, 1),
     ("extprod_recombine", "peba1_128_t2", 1000, 1),
     ("extprod_recombine", "peba1_128_fast", 1000, 1),
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
@@ -99,7 +108,7 @@ KERNELS = {
                       "peba1_tpu/ops/pallas_kernels.py:466"),
     "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/blind_rotate_gen_full.cu",
                               "peba1_tpu/ops/pallas_kernels.py:606"),
-    "rotate_decompose": ("peba1_tpu_torch/csrc/cmux_step.cu",
+    "rotate_decompose": ("peba1_tpu_torch/csrc/rotate_decompose.cu",
                          "peba1_tpu/ops/pallas_kernels.py:659"),
     "cmux_step": ("peba1_tpu_torch/csrc/cmux_step.cu",
                   "peba1_tpu/ops/pallas_kernels.py:341"),
@@ -160,6 +169,26 @@ def event_ms(fn, reps: int) -> float:
     import torch
     fn()  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float | None:
+    """Mean milliseconds of fn() on the card alone: the calls are enqueued
+    while the card sleeps, so the host's work between launches is not timed
+    (`event_ms` times both, and a small kernel's call waits on the host).
+    None where this torch has no device sleep."""
+    import torch
+    if not hasattr(torch.cuda, "_sleep"):
+        return None
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)      # about 0.1 s, far longer than enqueuing
     start.record()
     for _ in range(reps):
         fn()
@@ -264,9 +293,9 @@ def _inputs(kernel: str, p, B: int, steps: int, device, seed: int):
 def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
                 timed: bool, seed: int = 0) -> dict:
     """`kernel` against its plain twin on seeded random inputs; with `timed`,
-    CUDA-event times of the kernel, the twin and torch._int_mm on the GEMM of
-    one step, and the bound of the same work.  Step kernels report per CMUX
-    step."""
+    CUDA-event times of the kernel (with the host's work between calls, and
+    on the card alone), the twin and torch._int_mm on the GEMM of one step,
+    and the bound of the same work.  Step kernels report per CMUX step."""
     import torch
     from peba1_tpu_torch.ops import cuda_kernels as ck
     p = params_of(params_name)
@@ -292,6 +321,8 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
         if inplace is not None:
             bufs[inplace] = bufs[inplace].clone()
         out["ms"] = event_ms(lambda: wrapper(*bufs), 3) / per
+        dev_ms = device_ms(lambda: wrapper(*bufs), 10)
+        out["device_ms"] = None if dev_ms is None else dev_ms / per
         out["plain_ms"] = event_ms(lambda: plain(*bufs), 2) / per
         t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         out["bound_ms"] = max(t_ops, t_bytes) * 1e3 / per
@@ -320,10 +351,10 @@ def expected_launches(p, calls: int) -> dict:
     from peba1_tpu_torch.ops.bootstrap import selected_kernel
     want = dict.fromkeys(cuda_kernels.launches, 0)
     kernel = selected_kernel(p)
-    if kernel in ("fused_blind_rotate", "blind_rotate_gen_full", "cmux_step_gen"):
+    if kernel == "cmux_step" and p.w_streaming:
+        want[kernel] = p.n * calls           # one call a step, W built per step
+    elif kernel is not None:
         want[kernel] = calls                 # one launch a rotation
-    elif kernel == "cmux_step":
-        want[kernel] = 2 * p.n * calls       # two launches a CMUX step
     else:
         want["rotate_decompose"] = p.n * calls if p.use_pallas_rotate else 0
         want["extprod_recombine"] = p.n * calls if p.use_pallas_extprod else 0
@@ -340,9 +371,11 @@ def chain(ck, ct, steps: int):
     return ct
 
 
-def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = ""):
-    """Keygen at `params` (a preset name or TfheParams), a warm-up bootstrap,
-    then a chain of `steps` bootstraps of B bits, decrypted and counted."""
+def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "",
+               keyset=None):
+    """Keygen at `params` (a preset name or TfheParams), or the given
+    (secret key, cloud key) pair, a warm-up bootstrap, then a chain of
+    `steps` bootstraps of B bits, decrypted and counted."""
     import torch
     from peba1_tpu_torch import gates, keys
     from peba1_tpu_torch.ops import cuda_kernels
@@ -350,9 +383,10 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
     label = label or params
     reset_peak(device)
     t0 = time.time()
-    sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(seed), p, device)
+    sk, ck = keyset or keys.keygen(torch.Generator(device=device).manual_seed(seed), p,
+                                   device)
     sync(device)
-    t_keygen = time.time() - t0
+    t_keygen = 0.0 if keyset else time.time() - t0
     bits = np.random.default_rng(seed).integers(0, 2, B)
     g_enc = torch.Generator(device=device).manual_seed(seed + 1)
     chain(ck, gates.encrypt_bits(g_enc, sk, bits), 1)          # warm-up
@@ -380,9 +414,9 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
 
 
 def phase_rotation_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
-    """The keyset's whole-rotation kernel path (use_gen_full or
-    use_fused_cmux) against the use_gen_step rotation (cmux_step_gen) on the
-    same key and ciphertexts, at the full n: bit-equal accumulators."""
+    """The keyset's kernel path (use_gen_full, use_fused_cmux or cmux_step on
+    bk_w) against the use_gen_step rotation (cmux_step_gen) on the same key
+    and ciphertexts, at the full n: bit-equal accumulators."""
     import torch
     from peba1_tpu_torch import gates, lwe
     from peba1_tpu_torch.ops import bootstrap as bs
@@ -407,16 +441,19 @@ def phase_rotation_equal(keyset, B: int, device, label: str, seed: int = 0) -> d
 
 
 def phase_step_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
-    """cmux_step_gen over the keyset's n steps (one launch) against its plain
-    twin, on the key and ciphertexts of a bootstrap call: bit-equal
-    accumulators.  Kernels 1 and 2 share their device code, so this holds
-    kernel 1 against a second, independent code; phase_rotation_equal does
-    not."""
+    """The keyset's step kernel (cmux_step_gen on bk_tp, or cmux_step on
+    bk_w) over its n steps (one launch) against its plain twin, on the key
+    and ciphertexts of a bootstrap call: bit-equal accumulators.  The
+    kernels share their device code, so this holds each against a second,
+    independent code; phase_rotation_equal does not."""
     import torch
     from peba1_tpu_torch import gates
     from peba1_tpu_torch.ops import cuda_kernels, rotate
+    from peba1_tpu_torch.ops.bootstrap import selected_kernel
     sk, ck = keyset
     p = ck.params
+    kernel = selected_kernel(p)
+    key = ck.bk_tp if kernel == "cmux_step_gen" else ck.bk_w
     bits = np.random.default_rng(seed + 7).integers(0, 2, B)
     ct = gates.encrypt_bits(torch.Generator(device=device).manual_seed(seed + 8), sk, bits)
     bara = rotate.modswitch_2n(ct.a * 2, p.N)
@@ -424,21 +461,21 @@ def phase_step_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
     acc = rotate.initial_accumulator((2 * p.N - barb) % (2 * p.N), gates.MU_1_8, p)
     amt = bara.T.contiguous()
     t0 = time.time()
-    want = cuda_kernels.cmux_step_gen_plain(acc.clone(), amt, ck.bk_tp, p)
+    want = getattr(cuda_kernels, kernel + "_plain")(acc.clone(), amt, key, p)
     sync(device)
     t_plain = time.time() - t0
-    before = cuda_kernels.launches["cmux_step_gen"]
+    before = cuda_kernels.launches[kernel]
     t0 = time.time()
-    got = cuda_kernels.cmux_step_gen(acc.clone(), amt, ck.bk_tp, p)
+    got = getattr(cuda_kernels, kernel)(acc.clone(), amt, key, p)
     sync(device)
     dt = time.time() - t0
-    launches = cuda_kernels.launches["cmux_step_gen"] - before
+    launches = cuda_kernels.launches[kernel] - before
     mismatches = int((got != want).sum())
-    check(mismatches == 0, f"{label}: cmux_step_gen and its plain twin differ in "
+    check(mismatches == 0, f"{label}: {kernel} and its plain twin differ in "
           f"{mismatches} places over {p.n} steps")
     if torch_is_cuda(device):
-        check(launches == 1, f"{label}: cmux_step_gen launched {launches} times, want 1")
-    return {"phase": "step_equal", "params": label, "kernel": "cmux_step_gen", "B": B,
+        check(launches == 1, f"{label}: {kernel} launched {launches} times, want 1")
+    return {"phase": "step_equal", "params": label, "kernel": kernel, "B": B,
             "steps": p.n, "mismatches": mismatches, "launches": launches,
             "seconds": dt, "plain_seconds": t_plain}
 
@@ -624,7 +661,8 @@ def kernels_line(kernel: dict, main: dict) -> dict:
                      "replaces": replaces, "launches": main[name][1],
                      "launches_from": main[name][0],
                      "max_abs_err": max(c["max_abs_err"] for c in cases),
-                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "ms": first["ms"], "device_ms": first["device_ms"],
+                     "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"],
                      **({"library_note": NO_LIBRARY_CALL[name]}
@@ -682,7 +720,14 @@ def main() -> int:
         keyset, gate = phase_gate("peba1_128_t2", 8192, 3, device)
         emit(gate)
         path("gate peba1_128_t2", gate["launches"], "cmux_step")
-        del keyset
+        emit(phase_step_equal(keyset, 184, device, "peba1_128_t2"))
+        emit(phase_rotation_equal(keyset, 8192, device, "peba1_128_t2"))
+        sk, ck = keyset
+        stream = dataclasses.replace(ck.params, w_streaming=True)
+        gate = phase_gate(stream, 8192, 2, device, label="peba1_128_t2 w_streaming",
+                          keyset=(sk, dataclasses.replace(ck, params=stream)))[1]
+        emit(gate)
+        del keyset, sk, ck
         free_device_memory()
 
         keyset, gate = phase_gate("peba1_128_fast", 2048, 2, device)

@@ -1,19 +1,20 @@
-// Device code of the kernels that run many CMUX steps in one launch:
-// fused_blind_rotate.cu (kernel 6) directly, blind_rotate_gen_full.cu and
-// cmux_step_gen.cu (kernels 2 and 1) through gen_rotation.cuh.  cmux_step.cu
-// (kernels 3-5) does not include it, so a change here cannot move those.
+// Device code of the kernels that run CMUX steps and their GEMMs:
+// fused_blind_rotate.cu (kernel 6) and cmux_step.cu (kernels 4 and 5)
+// directly, blind_rotate_gen_full.cu and cmux_step_gen.cu (kernels 2 and 1)
+// through gen_rotation.cuh.  Kernel 5 (extprod_recombine) is one step's GEMM
+// phase alone, a plain launch that stores its tiles.
 //
-// One launch runs CMUX steps (a whole blind rotation, or kernel 1's S steps)
-// on a persistent cooperative grid of one 384-thread block per SM.  Per CMUX
-// step: a digit phase over every
-// (row, polynomial) pair, a grid barrier, a GEMM phase over every work item,
-// a second grid barrier.  A work item is BM = 128 batch rows x one output
-// polynomial o x 64 coefficients x one split of the contraction.
+// One launch runs CMUX steps (a whole blind rotation, or S steps of kernels
+// 1 and 4) on a persistent cooperative grid of one 384-thread block per SM.
+// Per CMUX step: a digit phase over every (row, polynomial) pair, a grid
+// barrier, a GEMM phase over every work item, a second grid barrier.  A work
+// item is BM = 128 batch rows x one output polynomial o x 64 coefficients x
+// one split of the contraction.
 //
 // GEMM phase, warp-specialized (no __syncthreads between the roles):
 //   * warpgroup 2, the producer, fills a ring of shared-memory stages.  A
 //     stage is 128 contraction bytes of the item: the digit tile (128 rows,
-//     by TMA) and the weight tile (nl*64 columns, by TMA in kernel 6,
+//     by TMA) and the weight tile (nl*64 columns, by TMA in kernels 4-6,
 //     expanded from the generator in kernels 1 and 2), both K-major with the
 //     128-byte swizzle.  An mbarrier pair per stage (full: bytes and the
 //     producers' arrivals; empty: one arrival per consumer warp) orders it.
@@ -632,11 +633,11 @@ inline int ring_stages(int extra) {
   return 0;
 }
 
-// Launches `kernel` (THREADS threads, `smem` bytes) cooperatively with one
-// block for each that fits on the card at once.
+// The blocks of `kernel` (THREADS threads, `smem` bytes) that fit on the
+// current device at once, after setting its dynamic shared-memory limit to
+// `smem`.
 template <typename Kernel>
-inline cudaError_t launch_cooperative(Kernel kernel, int smem, void** args,
-                                      cudaStream_t stream) {
+inline cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -648,7 +649,19 @@ inline cudaError_t launch_cooperative(Kernel kernel, int smem, void** args,
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(per_sm * sms),
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// Launches `kernel` (THREADS threads, `smem` bytes) cooperatively with one
+// block for each that fits on the card at once.
+template <typename Kernel>
+inline cudaError_t launch_cooperative(Kernel kernel, int smem, void** args,
+                                      cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -5,12 +5,15 @@
 
 Each turn is a fresh process started in one tree's root, which builds that
 tree's kernels and runs its ``chip_smoke.kernel_case`` on every case of
-`CASES` (each kernel against its plain twin, then CUDA-event times).  The
-parent is another checkout of the repository (for example
+`CASES` (each kernel against its plain twin, then CUDA-event times), then
+times whole bootstrap calls of `BOOTSTRAP_CASES` through that tree's
+package with this file's `bootstrap_calls` (the same timing code in both
+trees).  The parent is another checkout of the repository (for example
 ``git archive <commit> | tar -x -C build/parent``).  Prints the card's name
 and power limit first, then one JSON line per turn and case, then one line
 per case with the readings of every turn side by side.  A case that
-disagrees with its twin fails the run.
+disagrees with its twin, or a bootstrap call that decrypts wrong, fails
+the run.
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ import sys
 
 # (kernel, preset or chip_smoke.fused_params() label, batch, steps): the
 # kernels on csrc/whole_rotation.cuh at the sweep's (760) and the
-# authentication's (184) rows and at 8,192 (kernel 1 also at ring_2048_gen),
-# and the other kernels at their largest smoke case.
+# authentication's (184) rows and at 8,192 (kernel 1 also at ring_2048_gen,
+# kernel 4 also at peba1_128_fast), kernel 5 at 8,192 and 1,000 rows, and
+# kernel 3 at its largest smoke case.
 CASES = (
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused", 760, 8),
@@ -43,25 +47,75 @@ CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
     ("cmux_step_gen", "ring_2048_gen", 256, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
-    ("cmux_step", "peba1_128_t2", 8192, 2),
+    ("cmux_step", "peba1_128_t2", 8192, 8),
+    ("cmux_step", "peba1_128_t2", 760, 8),
+    ("cmux_step", "peba1_128_t2", 184, 8),
+    ("cmux_step", "peba1_128_fast", 1000, 8),
     ("extprod_recombine", "peba1_128_t2", 8192, 1),
+    ("extprod_recombine", "peba1_128_t2", 1000, 1),
 )
+# (preset, batches): whole bootstrap calls, the w_streaming path (one
+# cmux_step call a CMUX step, W built from bk_tp each step) at the
+# authentication's rows and at 8,192.
+BOOTSTRAP_CASES = (("peba1_128_t2_stream", (184, 8192)),)
 
 _TURN = """
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, {root!r})
 import torch
 import chip_smoke
+spec = importlib.util.spec_from_file_location("kernel_ab_here", {here!r})
+ab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab)
 device = torch.device("cuda", 0)
 for kernel, params, B, steps in {cases!r}:
     print(json.dumps(chip_smoke.kernel_case(kernel, params, B, steps, device, timed=True)),
           flush=True)
+for params, batches in {calls!r}:
+    for case in ab.bootstrap_calls(params, batches, device):
+        print(json.dumps(case), flush=True)
 """
 
 
-def turn(root: str, cases=CASES) -> "list[dict]":
-    """One process in `root`: its kernel_case of every case."""
-    proc = subprocess.run([sys.executable, "-c", _TURN.format(root=root, cases=list(cases))],
+def bootstrap_calls(params: str, batches, device, reps: int = 3) -> "list[dict]":
+    """Milliseconds of one bootstrap call at preset `params` for each batch,
+    the mean of `reps` calls after a warm-up (CUDA events), on a key from
+    seed 0 in the package found first on ``sys.path``, with the CUDA
+    launches of one call and the bits it decrypts wrong."""
+    import numpy as np
+    import torch
+    from peba1_tpu_torch import gates, keys
+    from peba1_tpu_torch.ops import bootstrap as bs
+    from peba1_tpu_torch.ops import cuda_kernels
+    from peba1_tpu_torch.params import PRESETS
+    sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(0), PRESETS[params], device)
+    out = []
+    for B in batches:
+        bits = np.random.default_rng(B).integers(0, 2, B)
+        ct = gates.encrypt_bits(torch.Generator(device=device).manual_seed(B), sk, bits)
+        bs.bootstrap(ck, ct, gates.MU_1_8)                          # warm-up
+        torch.cuda.synchronize(device)
+        cuda_kernels.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            res = bs.bootstrap(ck, ct, gates.MU_1_8)
+        end.record()
+        torch.cuda.synchronize(device)
+        wrong = int((gates.decrypt_bits(res, sk).cpu().numpy() != bits).sum())
+        out.append({"kernel": "bootstrap_call", "params": params, "B": B,
+                    "ms": start.elapsed_time(end) / reps, "mismatches": wrong,
+                    "launches": {k: v // reps for k, v in cuda_kernels.launches.items() if v}})
+    return out
+
+
+def turn(root: str, cases=CASES, calls=BOOTSTRAP_CASES) -> "list[dict]":
+    """One process in `root`: its kernel_case of every case, then the
+    bootstrap calls."""
+    script = _TURN.format(root=root, here=os.path.abspath(__file__), cases=list(cases),
+                          calls=list(calls))
+    proc = subprocess.run([sys.executable, "-c", script],
                           cwd=root, capture_output=True, text=True, timeout=1500)
     if proc.returncode != 0:
         raise SystemExit(f"turn in {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")

@@ -49,9 +49,10 @@ class CloudKey:
     bk: torch.Tensor | None = None  # (n, (k+1)l, k+1, N) int32 TRGSW(s_i)
     # (n, C*N, G*N) int8, G = (k+1)l: every step's full Toeplitz weights,
     # TRANSPOSED against the JAX package's (n, G*N, C*N) bk_w:
-    # bk_w[s, c*N + j, g*N + t] = bk_tp[s, g, c, N - t + j].  Row-major along
-    # the contraction, so the CUDA GEMM's B tiles load like its A tiles
-    # (csrc/cmux_step.cu).  None unless need_w(params): 10.9 GB at
+    # bk_w[s, c*N + j, g*N + t] = bk_tp[s, g, c, N - t + j].  The
+    # contraction runs along a row (K-major, as wgmma takes an int8 B
+    # operand), so a TMA box of 64 rows x 128 bytes is one limb of a weight
+    # tile (csrc/cmux_step.cu).  None unless need_w(params): 10.9 GB at
     # peba1_128_t2.
     bk_w: torch.Tensor | None = None
     # (n, C, G, span, K) int8: the A-matrix (ops/poly.prepare_amat), the last

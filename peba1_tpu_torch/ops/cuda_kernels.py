@@ -9,26 +9,25 @@ of the same name:
   * `blind_rotate_gen_full`: the whole blind rotation, accumulator set-up and
     all n such steps, in one launch (``csrc/blind_rotate_gen_full.cu``);
   * `rotate_decompose`: rotate, difference and gadget digits in natural
-    coefficient order (``csrc/cmux_step.cu``);
+    coefficient order (``csrc/rotate_decompose.cu``);
   * `extprod_recombine`: digits times one step's precomputed weights W, limb
     recombination as the epilogue (``csrc/cmux_step.cu``);
   * `cmux_step`: CMUX steps against precomputed W, the product added into the
-    accumulator (``csrc/cmux_step.cu``);
+    accumulator, all steps of a call in one launch (``csrc/cmux_step.cu``);
   * `fused_blind_rotate`: the whole blind rotation against the precomputed
     A-matrix ``bk_amat``, in one launch (``csrc/fused_blind_rotate.cu``).
 
-Design notes are in the sources; `cmux_step_gen` and the two whole-rotation
-kernels share ``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory
-ring, split-K; the first two through ``csrc/gen_rotation.cuh``) and take
-their contraction split from `tile_plan`.  On a CPU tensor a
-wrapper runs its plain twin (``*_plain``, the same signature and result in
-plain PyTorch).  On a CUDA tensor it launches the kernel or raises; it never
+Design notes are in the sources; every kernel but `rotate_decompose` runs on
+``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory ring, split-K;
+`cmux_step_gen` and `blind_rotate_gen_full` through
+``csrc/gen_rotation.cuh``) and takes its contraction split from
+`tile_plan`.  On a CPU tensor a wrapper runs its plain twin (``*_plain``,
+the same signature and result in plain PyTorch).  On a CUDA tensor it launches the kernel or raises; it never
 falls back.  Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
 first use into its own shared library, all at once, under the package's
 ``build/`` directory (keyed by one hash of every source and the flags; git
 ignores it), and bound with ctypes.  ``launches`` counts the CUDA kernel
-launches each wrapper makes: two per CMUX step for `cmux_step`, one per
-call for the other five.
+launches each wrapper makes: one per call for every wrapper.
 """
 
 from __future__ import annotations
@@ -59,9 +58,9 @@ _ENTRIES = {
     "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
                                     [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
-    "peba1_rotate_decompose": ("cmux_step", [_P] * 3 + [_I] * 5 + [_U, _P]),
-    "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 6 + [_P]),
-    "peba1_cmux_step": ("cmux_step", [_P] * 4 + [_I] * 6 + [_U, _I, _I, _P]),
+    "peba1_rotate_decompose": ("rotate_decompose", [_P] * 3 + [_I] * 5 + [_U, _P]),
+    "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 7 + [_P]),
+    "peba1_cmux_step": ("cmux_step", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
     "peba1_fused_blind_rotate": ("fused_blind_rotate",
                                  [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _I, _U, _P]),
 }
@@ -174,8 +173,8 @@ BK_BYTES = 128     # contraction bytes of one shared-memory stage
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """How `cmux_step_gen`, `blind_rotate_gen_full` and `fused_blind_rotate`
-    cut one CMUX step's GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
+    """How the kernels on ``csrc/whole_rotation.cuh`` cut one CMUX step's
+    GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
     N/64 column tiles, each cut into `split` work items along the
     contraction's `blocks` blocks (the G*U (g, u) blocks of the A-matrix, or
     the G digit polynomials of the generator)."""
@@ -195,13 +194,13 @@ class TilePlan:
 def contraction_blocks(params: TfheParams, kernel: str, K: int | None = None) -> int:
     """The blocks that a split of `kernel`'s contraction may take: G*U
     (g, u) blocks for fused_blind_rotate (U = N/K, K from
-    ``params.amat_block`` unless given), G digit polynomials for
-    cmux_step_gen and blind_rotate_gen_full."""
+    ``params.amat_block`` unless given), G digit polynomials for the other
+    four kernels on the skeleton."""
     G = (params.k + 1) * params.l
     if kernel == "fused_blind_rotate":
         K = K or poly.amat_geometry(params.N, params.amat_block)[0]
         return G * (params.N // K)
-    if kernel in ("cmux_step_gen", "blind_rotate_gen_full"):
+    if kernel in ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step", "extprod_recombine"):
         return G
     raise ValueError(f"no tile plan for {kernel}")
 
@@ -378,11 +377,15 @@ def extprod_recombine(digits: torch.Tensor, w: torch.Tensor,
                     w=(w, torch.int8, (C * p.N, G * p.N)))
     if device.type == "cpu":
         return extprod_recombine_plain(digits, w, p)
-    out = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
+    _check_rotation_shapes("extprod_recombine", p)
     if B == 0:
-        return out
+        return torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
+    plan = tile_plan(B, p, "extprod_recombine", _sm_count(device))
+    # One split stores its tiles; several add theirs into zeros.
+    alloc = torch.zeros if plan.split > 1 else torch.empty
+    out = alloc((B, k1 * p.N), dtype=torch.int32, device=device)
     _launch("peba1_extprod_recombine", device, out.data_ptr(), digits.data_ptr(),
-            w.data_ptr(), B, p.N, p.k, p.l, p.bk_limbs, p.bk_body_limbs)
+            w.data_ptr(), B, p.N, p.k, p.l, p.bk_limbs, p.bk_body_limbs, plan.split)
     launches["extprod_recombine"] += 1
     return out
 
@@ -408,7 +411,7 @@ def cmux_step(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
     S steps of CloudKey.bk_w (or one step built by `poly.toeplitz_weights`).
     Step s is `rotate_decompose`, `extprod_recombine` and an add, as
     ``pallas_kernels.cmux_step`` does; all digits of a step exist before any
-    acc write.
+    acc write.  One kernel launch for all S steps.
     """
     p = params
     k1, G, C = _sizes(p)
@@ -418,13 +421,17 @@ def cmux_step(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
                     w=(w, torch.int8, (S, C * p.N, G * p.N)))
     if device.type == "cpu":
         return cmux_step_plain(acc_flat, amt, w, p)
+    _check_rotation_shapes("cmux_step", p)
     if B == 0 or S == 0:
         return acc_flat
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
+    plan = tile_plan(B, p, "cmux_step", _sm_count(device))
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_cmux_step", device, acc_flat.data_ptr(), amt.data_ptr(), w.data_ptr(),
-            digits.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl)
-    launches["cmux_step"] += 2 * S          # two CUDA kernels a step
+            digits.data_ptr(), grid_bar.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl,
+            plan.split)
+    launches["cmux_step"] += 1
     return acc_flat
 
 

@@ -8,8 +8,9 @@ time the mean of a few calls after a warm-up, timed with CUDA events:
     `GEN_STEPS` steps of the cloud key in one call, divided by the steps),
     the same step as a call of its own (one launch a step), one keyswitch
     and one whole bootstrap call;
-  * `peba1_128_t2`: one CMUX step against the precomputed weights
-    (`cuda_kernels.cmux_step`, one step of ``bk_w``);
+  * `peba1_128_t2`: a CMUX step against the precomputed weights
+    (`cuda_kernels.cmux_step` over `GEN_STEPS` steps of ``bk_w`` in one
+    call, divided by the steps) and the same step as a call of its own;
   * `peba1_128_fast_genf`: one whole blind rotation
     (`cuda_kernels.blind_rotate_gen_full`, all n steps in one launch) and one
     whole bootstrap call;
@@ -44,9 +45,9 @@ from .params import PRESETS
 FAST_FUSED = dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True)
 BATCHES = (32, 128, 184, 512, 1024, 2048, 4096, 8192)
 PROFILE_BATCH = 184
-# Steps of one timed cmux_step_gen call: the kernel runs a call's steps in
-# one cooperative launch, whose start and barriers one step would carry
-# alone; a bootstrap call runs n = 630.
+# Steps of one timed cmux_step_gen or cmux_step call: each kernel runs a
+# call's steps in one cooperative launch, whose start and barriers one step
+# would carry alone; a bootstrap call runs n = 630.
 GEN_STEPS = 8
 SEED = 0
 
@@ -100,9 +101,14 @@ def t2_w_times(ck, B: int, device: torch.device, seed: int) -> dict:
     p = ck.params
     rng = np.random.default_rng(seed + B)
     acc = _rand_i32(rng, (B, (p.k + 1) * p.N), device)
-    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (1, B), dtype=np.int32), device=device)
-    return {"B": B, "cmux_step_ms": mean_ms(
-        lambda: cuda_kernels.cmux_step(acc, amt, ck.bk_w[:1], p), 5, device)}
+    amt = torch.as_tensor(rng.integers(0, 2 * p.N, (GEN_STEPS, B), dtype=np.int32),
+                          device=device)
+    return {"B": B,
+            "cmux_step_ms": mean_ms(
+                lambda: cuda_kernels.cmux_step(acc, amt, ck.bk_w[:GEN_STEPS], p),
+                5, device) / GEN_STEPS,
+            "cmux_step_alone_ms": mean_ms(
+                lambda: cuda_kernels.cmux_step(acc, amt[:1], ck.bk_w[:1], p), 5, device)}
 
 
 def rotation_times(ck, sk, B: int, device: torch.device, seed: int) -> dict:

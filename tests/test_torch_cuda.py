@@ -75,7 +75,8 @@ def test_blind_rotate_gen_full_matches_plain(cuda_device, name, B, steps):
 @pytest.mark.parametrize("name,B", [("peba1_128_t2", 1000), ("peba1_128_fast", 67)])
 def test_w_kernels_match_plain(cuda_device, kernel, name, B):
     """The precomputed-weight family on random acc, amt and W (the port's
-    (C*N, G*N) layout): every output polynomial, o < k and o = k."""
+    (C*N, G*N) layout): every output polynomial, o < k and o = k; cmux_step
+    runs both steps in one launch."""
     p = PRESETS[name]
     G, C = (p.k + 1) * p.l, sum(p.limb_plan)
     acc, amt, _ = random_step_inputs(p, B, 2, 6, cuda_device)
@@ -91,7 +92,7 @@ def test_w_kernels_match_plain(cuda_device, kernel, name, B):
     got = getattr(ck, kernel)(*[a.clone() for a in args], p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert ck.launches[kernel] == before + (4 if kernel == "cmux_step" else 1)
+    assert ck.launches[kernel] == before + 1
 
 
 FUSED = {"fast": dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True),
@@ -129,8 +130,9 @@ def test_fused_blind_rotate_matches_plain(cuda_device, name, B, steps):
     assert ck.launches["fused_blind_rotate"] == before + 1
 
 
-# The kernels on csrc/whole_rotation.cuh: the two whole rotations and
-# cmux_step_gen's steps on an incoming accumulator.
+# The kernels on csrc/whole_rotation.cuh that run CMUX steps: the two whole
+# rotations, and cmux_step_gen's and cmux_step's steps on an incoming
+# accumulator.
 ROTATIONS = {"fast_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_fast_genf"]),
              "t2_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_t2_genf"]),
              "fast_fused": ("fused_blind_rotate", FUSED["fast"]),
@@ -138,7 +140,17 @@ ROTATIONS = {"fast_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_fast_genf
              "t2_fused": ("fused_blind_rotate", FUSED["t2"]),
              "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"]),
              "fast_gen": ("cmux_step_gen", PRESETS["peba1_128_fast_gen"]),
-             "ring_2048_gen": ("cmux_step_gen", PRESETS["ring_2048_gen"])}
+             "ring_2048_gen": ("cmux_step_gen", PRESETS["ring_2048_gen"]),
+             "t2_w": ("cmux_step", PRESETS["peba1_128_t2"]),
+             "fast_w": ("cmux_step", PRESETS["peba1_128_fast_stream"])}
+
+
+def random_w(p, steps, seed, device):
+    """Random bytes in bk_w's shape (n, C*N, G*N)."""
+    G, C = (p.k + 1) * p.l, sum(p.limb_plan)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-128, 128, (steps, C * p.N, G * p.N), generator=gen,
+                         dtype=torch.int8, device=device)
 
 
 def rotation_inputs(name, B, steps, device):
@@ -147,13 +159,15 @@ def rotation_inputs(name, B, steps, device):
     acc, amt, vv = random_step_inputs(p, B, steps + 1, 13, device)
     if kernel == "cmux_step_gen":
         return kernel, p, (acc, amt[1:].contiguous(), vv[:steps].contiguous())
+    if kernel == "cmux_step":
+        return kernel, p, (acc, amt[1:].contiguous(), random_w(p, steps, 15, device))
     key = random_amat(p, steps, 14, device) if kernel == "fused_blind_rotate" \
         else vv[:steps].contiguous()
     return kernel, p, (amt, key, -(1 << 29) + 7)
 
 
 def call(fn, args, p):
-    """fn on copies of the tensor arguments (cmux_step_gen updates acc in place)."""
+    """fn on copies of the tensor arguments (the step kernels update acc in place)."""
     return fn(*[a.clone() if isinstance(a, torch.Tensor) else a for a in args], p)
 
 
@@ -173,13 +187,8 @@ def test_rotation_kernels_at_protocol_batches(cuda_device, name, B):
     assert ck.launches[kernel] == before + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(ROTATIONS))
-def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
-    """Every block of the contraction its own work item, at a batch whose
-    plan would not split (B=1000 needs 2): the atomic adds of all splits
-    still give the plain twin's bits."""
-    kernel, p, inputs = rotation_inputs(name, 1000, 2, cuda_device)
+def largest_split(monkeypatch):
+    """Make tile_plan put every block of the contraction in its own split."""
     plan = ck.tile_plan
 
     def largest(*args, **kw):
@@ -187,8 +196,56 @@ def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
         return ck.TilePlan(got.blocks, got.blocks, got.tiles)
 
     monkeypatch.setattr(ck, "tile_plan", largest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ROTATIONS))
+def test_rotation_kernels_at_the_largest_split(cuda_device, name, monkeypatch):
+    """Every block of the contraction its own work item, at a batch whose
+    plan would not split (B=1000 needs 2): the atomic adds of all splits
+    still give the plain twin's bits."""
+    kernel, p, inputs = rotation_inputs(name, 1000, 2, cuda_device)
+    largest_split(monkeypatch)
     want = call(getattr(ck, kernel + "_plain"), inputs, p)
     got = call(getattr(ck, kernel), inputs, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def extprod_inputs(name, B, device):
+    """Digits in the gadget's range and one random step of bk_w."""
+    p = PRESETS[name]
+    G = (p.k + 1) * p.l
+    rng = np.random.default_rng(16)
+    d = torch.as_tensor(rng.integers(-p.half_bg, p.half_bg, (B, G * p.N)).astype(np.int8),
+                        device=device)
+    return p, d, random_w(p, 1, 17, device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 67, 184, 1000, 2048])
+@pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast"])
+def test_extprod_recombine_at_protocol_batches(cuda_device, name, B):
+    """Kernel 5 against its plain twin, one launch: the batches whose plan
+    splits the contraction (adds into zeros) and those that store."""
+    p, d, w = extprod_inputs(name, B, cuda_device)
+    want = ck.extprod_recombine_plain(d, w, p)
+    before = ck.launches["extprod_recombine"]
+    got = ck.extprod_recombine(d, w, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches["extprod_recombine"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast"])
+def test_extprod_recombine_at_the_largest_split(cuda_device, name, monkeypatch):
+    """Every digit polynomial its own split at 2,048 rows, which the plan
+    would not split: the adds into the zeroed output give the twin's bits."""
+    p, d, w = extprod_inputs(name, 2048, cuda_device)
+    largest_split(monkeypatch)
+    want = ck.extprod_recombine_plain(d, w, p)
+    got = ck.extprod_recombine(d, w, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 

@@ -2,13 +2,15 @@
 arithmetic.
 
 `cuda_kernels.tile_plan` picks how many splits of a CMUX step's contraction
-`cmux_step_gen`, `blind_rotate_gen_full` and `fused_blind_rotate` run; each
-split adds its recombined delta into the accumulator with an atomic add on
+`cmux_step_gen`, `blind_rotate_gen_full`, `cmux_step`, `extprod_recombine`
+and `fused_blind_rotate` run; each split adds its recombined delta into the
+accumulator (or `extprod_recombine`'s zeroed output) with an atomic add on
 the card.  Here, on the CPU: the plan for every configuration that runs one
 of them covers each contraction block exactly once and follows its rule,
 and the per-split deltas, summed mod 2^32, are the unsplit external product
 bit for bit; one step built from them equals the Pallas kernels in
-interpret mode.  Each of these kernels is one launch a bootstrap call, as
+interpret mode.  Each of these kernels is one launch a bootstrap call
+(`cmux_step` under w_streaming one a CMUX step), as
 `chip_smoke.expected_launches` counts it.  The CUDA kernels themselves are
 tested on the card by tests/test_torch_cuda.py and `python3 chip_smoke.py`.
 """
@@ -35,7 +37,7 @@ from peba1_tpu_torch.torus import wrap_i32
 # workers on one machine those threads oversubscribe the cores.
 torch.set_num_threads(1)
 
-ROTATION_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "fused_blind_rotate")
+ROTATION_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "fused_blind_rotate", "cmux_step")
 CONFIGS = {**{name: p for name, p in PRESETS.items() if selected_kernel(p) in ROTATION_KERNELS},
            **fused_params()}
 BATCHES = (1, 67, 184, 760, 1000, 8192)
@@ -44,7 +46,7 @@ SM_COUNTS = (132, 114)
 
 def test_every_rotation_configuration_is_planned():
     assert {selected_kernel(p) for p in CONFIGS.values()} == set(ROTATION_KERNELS)
-    assert len(CONFIGS) == 8
+    assert len(CONFIGS) == 12
 
 
 @pytest.mark.parametrize("sms", SM_COUNTS)
@@ -86,14 +88,37 @@ def test_tile_plan_splits_the_protocol_batches():
             for B in (184, 760, 8192)] == [6, 2, 1]
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_tile_plan_splits_the_w_kernels():
+    """cmux_step at t2 splits as cmux_step_gen does (the same product); at
+    fast (G = 4) 184 rows are 2 x 2 x 16 = 64 tiles.  extprod_recombine at
+    t2 splits 1,000 rows (8 x 3 x 8 = 192 tiles, under two per SM) in two."""
+    t2, fast = PRESETS["peba1_128_t2"], PRESETS["peba1_128_fast_stream"]
+    assert [ck.tile_plan(B, t2, "cmux_step", 132).split
+            for B in (184, 760, 8192)] == [6, 2, 1]
+    assert [ck.tile_plan(B, fast, "cmux_step", 132).split for B in (184, 1000)] == [4, 2]
+    assert [ck.tile_plan(B, t2, "extprod_recombine", 132).split
+            for B in (1000, 2048)] == [2, 1]
+
+
+@pytest.mark.parametrize("name", sorted(n for n, p in CONFIGS.items() if not p.w_streaming))
 def test_expected_launches_is_one_a_bootstrap_call(name):
-    """The smoke's launch count for every configuration on the skeleton:
-    its kernel once per bootstrap call, every other kernel never."""
+    """The smoke's launch count for every configuration on the skeleton that
+    holds its whole key: its kernel once per bootstrap call, every other
+    kernel never."""
     p = CONFIGS[name]
     want = dict.fromkeys(ck.launches, 0)
     want[selected_kernel(p)] = 7
     assert expected_launches(p, 7) == want
+
+
+@pytest.mark.parametrize("name,per_call", [("peba1_128_t2", 1), ("toy_t2", 1),
+                                           ("peba1_128_t2_stream", 630),
+                                           ("peba1_128_fast_stream", 630)])
+def test_expected_launches_of_cmux_step(name, per_call):
+    """cmux_step on bk_w: one launch for all n steps of a bootstrap call;
+    under w_streaming one call, so one launch, a step."""
+    p = PRESETS[name]
+    assert expected_launches(p, 7) == {**dict.fromkeys(ck.launches, 0), "cmux_step": 7 * per_call}
 
 
 # --- the arithmetic of the splits, at toy sizes -----------------------------
@@ -106,10 +131,28 @@ STEP_CASES = {
     "genf_toy_t2": ("blind_rotate_gen_full", TOY_T2),
     "gen_toy_t2": ("cmux_step_gen", dataclasses.replace(TOY_T2, use_gen_step=True)),
     "gen_toy_n256": ("cmux_step_gen", dataclasses.replace(TOY, N=256, use_gen_step=True)),
+    "w_toy_t2": ("cmux_step", TOY_T2),
+    "w_toy_fast": ("cmux_step", dataclasses.replace(TOY_FAST, use_fused_step=True)),
+    "ext_toy_t2": ("extprod_recombine", dataclasses.replace(TOY_T2, use_fused_step=False,
+                                                            use_pallas_extprod=True)),
+    "ext_toy_fast": ("extprod_recombine", dataclasses.replace(TOY_FAST,
+                                                              use_pallas_extprod=True)),
 }
+W_KERNELS = ("cmux_step", "extprod_recombine")      # on one step of bk_w's layout
 BATCH = 11
 MU = -(1 << 29) + 12345
 prepare_amat = jax.jit(jpoly.prepare_amat, static_argnames="block")
+
+
+def product(kernel, p, d, key):
+    """The plain external product of digits (B, G, N) and one step of
+    `kernel`'s key, (B, k+1, N) int32."""
+    if kernel == "fused_blind_rotate":
+        return poly.extprod_amat_i8(d, key, p.limb_plan, p.N)
+    if kernel in W_KERNELS:
+        B = d.shape[0]
+        return ck.extprod_recombine_plain(d.reshape(B, -1), key, p).view(B, p.k + 1, p.N)
+    return poly.extprod_toeplitz_i8(d, key, p.limb_plan)
 
 
 def split_delta(kernel, p, digits, key, plan, sp):
@@ -124,10 +167,7 @@ def split_delta(kernel, p, digits, key, plan, sp):
             mask[g, u * K:(u + 1) * K] = True
         else:
             mask[b] = True
-    d = torch.where(mask, digits, torch.zeros_like(digits))
-    if kernel == "fused_blind_rotate":
-        return poly.extprod_amat_i8(d, key, p.limb_plan, p.N)
-    return poly.extprod_toeplitz_i8(d, key, p.limb_plan)
+    return product(kernel, p, torch.where(mask, digits, torch.zeros_like(digits)), key)
 
 
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
@@ -135,7 +175,10 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
     """For every split the plan can take, the per-split deltas summed with
     int32 wraparound equal the unsplit product; acc plus that sum equals
     one step of the Pallas kernel in interpret mode (the whole rotation cut
-    to one step, or cmux_step_gen on the same starting accumulator)."""
+    to one step, or cmux_step_gen or cmux_step on the same starting
+    accumulator), and the sum alone equals extprod_recombine on the same
+    digits.  The W kernels' key is one step of bk_w, built by each package
+    from the same generator."""
     kernel, p = STEP_CASES[name]
     G, C = (p.k + 1) * p.l, sum(p.limb_plan)
     rng = np.random.default_rng(21)
@@ -154,25 +197,36 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
         key = torch.as_tensor(vv)
         want = pk.blind_rotate_gen_full(jnp.asarray(amt.T), jnp.asarray(vv), jnp.int32(MU), p,
                                         interpret=True)
-    else:
+    elif kernel == "cmux_step_gen":
         key = torch.as_tensor(vv)
         want = pk.cmux_step_gen(jnp.asarray(acc.numpy()), jnp.asarray(amt[1]),
                                 jnp.asarray(vv[0]), p, interpret=True)
-    digits = ck.rotate_decompose_plain(acc, tamt[1], p).view(BATCH, G, p.N)
-    if kernel == "fused_blind_rotate":
-        whole = poly.extprod_amat_i8(digits, key[0], p.limb_plan, p.N)
     else:
-        whole = poly.extprod_toeplitz_i8(digits, key[0], p.limb_plan)
+        key = poly.prepare_w_full(torch.as_tensor(vv))          # (1, C*N, G*N)
+        jw = jpoly.prepare_w_full(jnp.asarray(vv))[0]           # JAX's (G*N, C*N)
+    digits = ck.rotate_decompose_plain(acc, tamt[1], p).view(BATCH, G, p.N)
+    if kernel == "cmux_step":
+        want = pk.cmux_step(jnp.asarray(acc.numpy()), jnp.asarray(amt[1]), jw, p,
+                            interpret=True)
+    elif kernel == "extprod_recombine":
+        want = pk.extprod_recombine(jnp.asarray(digits.reshape(BATCH, -1).numpy()), jw, p,
+                                    interpret=True)
+    whole = product(kernel, p, digits, key[0])
     blocks = ck.contraction_blocks(p, kernel)
     for split in (s for s in range(1, blocks + 1) if blocks % s == 0):
         plan = ck.TilePlan(split, blocks, 1)
         total = sum(split_delta(kernel, p, digits, key[0], plan, sp).to(torch.int64)
                     for sp in range(split))
         np.testing.assert_array_equal(wrap_i32(total).numpy(), whole.numpy())
-    step = wrap_i32(acc.view(BATCH, p.k + 1, p.N).to(torch.int64) + whole)
+    if kernel == "extprod_recombine":
+        step = whole
+    else:
+        step = wrap_i32(acc.view(BATCH, p.k + 1, p.N).to(torch.int64) + whole)
     np.testing.assert_array_equal(np.asarray(want), step.reshape(BATCH, -1).numpy())
-    if kernel == "cmux_step_gen":                               # the wrapper's CPU twin
-        got = ck.cmux_step_gen(acc.clone(), tamt[1:], key, p)
+    if kernel in ("cmux_step_gen", "cmux_step"):                # the wrapper's CPU twin
+        got = getattr(ck, kernel)(acc.clone(), tamt[1:], key, p)
+    elif kernel == "extprod_recombine":
+        got = ck.extprod_recombine(digits.reshape(BATCH, -1), key[0], p)
     else:
         got = getattr(ck, kernel)(tamt, key, MU, p)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
