@@ -11,8 +11,10 @@ phase printing one JSON line:
   3. kernel: every kernel against its plain PyTorch twin, bit-equal, on
      seeded random inputs at the main paths' shapes, with CUDA-event times of
      the kernel (calls in a row, and on the card alone), of the twin and (for
-     the GEMM kernels) of torch._int_mm on the same product, and the bound
-     of each case;
+     the GEMM kernels) of torch._int_mm on the same product, the bound of
+     each case, and for rotate_decompose the time of a device-to-device copy
+     of as many bytes (a ceiling it can reach; the port never calls either
+     yardstick);
   4. gate and auth at peba1_128_t2_gen (the main path, one cmux_step_gen
      launch per bootstrap call): keygen on the card, a chain of serialized
      AND(x, x) bootstraps at B=8192 (bench.py's measurement), decrypted,
@@ -64,7 +66,7 @@ MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
 # (kernel, preset or fused_params() label, batch, steps): the shapes each
 # kernel meets on its path; 184 and 760 are the authentication's and the
 # sweep's mean rows a bootstrap call (757 rounded up to a multiple of 8, as
-# torch._int_mm needs).
+# torch._int_mm needs), 2048 the use_pallas_extprod chain's batch.
 KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 8192, 8),
     ("cmux_step_gen", "peba1_128_t2_gen", 1000, 8),
@@ -80,9 +82,12 @@ KERNEL_CASES = (
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 760, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 184, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
+    ("rotate_decompose", "peba1_128_t2", 2048, 1),
     ("rotate_decompose", "peba1_128_t2", 1000, 1),
+    ("rotate_decompose", "peba1_128_t2", 184, 1),
     ("rotate_decompose", "peba1_128_fast", 8192, 1),
     ("rotate_decompose", "peba1_128_fast", 1000, 1),
+    ("rotate_decompose", "peba1_128_fast", 67, 1),
     ("cmux_step", "peba1_128_t2", 8192, 8),
     ("cmux_step", "peba1_128_t2", 1000, 8),
     ("cmux_step", "peba1_128_t2", 760, 8),
@@ -120,6 +125,8 @@ KERNELS = {
 # A kernel with no single PyTorch call that computes what it computes.
 NO_LIBRARY_CALL = {"rotate_decompose": "none: no single PyTorch call computes "
                                        "rotate + decompose"}
+COPY_NOTE = ("a device-to-device Tensor.copy_ moving as many bytes, on the card alone: "
+             "a ceiling the kernel can reach, never called by the port")
 
 
 def fused_params() -> dict:
@@ -277,7 +284,9 @@ def _inputs(kernel: str, p, B: int, steps: int, device, seed: int):
         return (args, None, macs, args[0].nbytes + args[1].nbytes + acc_bytes,
                 (i8((B, GN)), i8((CN, GN))))
     if kernel == "rotate_decompose":
-        args = (i32((B, k1 * p.N)), rot((B,)), p)
+        amt = rot((B,))
+        amt[:3] = torch.tensor([0, p.N, 2 * p.N - 1][:B])    # no shift, negation, the last
+        args = (i32((B, k1 * p.N)), amt, p)
         return args, None, 0, acc_bytes + args[1].nbytes + B * GN, None
     if kernel == "cmux_step":
         args = (i32((B, k1 * p.N)), rot((steps, B)), i8((steps, CN, GN)), p)
@@ -295,7 +304,10 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
     """`kernel` against its plain twin on seeded random inputs; with `timed`,
     CUDA-event times of the kernel (with the host's work between calls, and
     on the card alone), the twin and torch._int_mm on the GEMM of one step,
-    and the bound of the same work.  Step kernels report per CMUX step."""
+    and the bound of the same work.  Step kernels report per CMUX step.
+    rotate_decompose also reports `copy_ms`, one device-to-device
+    Tensor.copy_ of half its bytes (so it reads and writes as many bytes as
+    the kernel), on the card alone: a yardstick the port never calls."""
     import torch
     from peba1_tpu_torch.ops import cuda_kernels as ck
     p = params_of(params_name)
@@ -328,6 +340,10 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
         out["bound_ms"] = max(t_ops, t_bytes) * 1e3 / per
         out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         out["library_ms"] = None
+        if kernel == "rotate_decompose":
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+            dst = torch.empty_like(src)
+            out["copy_ms"] = device_ms(lambda: dst.copy_(src), 10)
         if gemm is not None:   # the GEMM alone, one step: torch._int_mm
             a, wt = gemm
             try:
@@ -667,6 +683,8 @@ def kernels_line(kernel: dict, main: dict) -> dict:
                      "library_ms": first["library_ms"],
                      **({"library_note": NO_LIBRARY_CALL[name]}
                         if name in NO_LIBRARY_CALL else {}),
+                     **({"copy_ms": first["copy_ms"], "copy_note": COPY_NOTE}
+                        if "copy_ms" in first else {}),
                      "case": {k: first[k] for k in ("params", "B", "steps", "unit")}})
     return {"kernels": rows}
 

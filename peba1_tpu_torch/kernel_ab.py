@@ -5,10 +5,12 @@
 
 Each turn is a fresh process started in one tree's root, which builds that
 tree's kernels and runs its ``chip_smoke.kernel_case`` on every case of
-`CASES` (each kernel against its plain twin, then CUDA-event times), then
-times whole bootstrap calls of `BOOTSTRAP_CASES` through that tree's
-package with this file's `bootstrap_calls` (the same timing code in both
-trees).  The parent is another checkout of the repository (for example
+`CASES` (each kernel against its plain twin, then CUDA-event times: `ms`,
+calls in a row, and `device_ms`, on the card alone) and this file's
+`host_us` (the wrapper's host time a call), then times whole bootstrap
+calls of `BOOTSTRAP_CASES` through that tree's package with this file's
+`bootstrap_calls`; the code of this file times both trees alike.  The
+parent is another checkout of the repository (for example
 ``git archive <commit> | tar -x -C build/parent``).  Prints the card's name
 and power limit first, then one JSON line per turn and case, then one line
 per case with the readings of every turn side by side.  A case that
@@ -19,6 +21,7 @@ the run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -28,7 +31,7 @@ import sys
 # kernels on csrc/whole_rotation.cuh at the sweep's (760) and the
 # authentication's (184) rows and at 8,192 (kernel 1 also at ring_2048_gen,
 # kernel 4 also at peba1_128_fast), kernel 5 at 8,192 and 1,000 rows, and
-# kernel 3 at its largest smoke case.
+# every smoke case of kernel 3.
 CASES = (
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused", 760, 8),
@@ -47,6 +50,12 @@ CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
     ("cmux_step_gen", "ring_2048_gen", 256, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
+    ("rotate_decompose", "peba1_128_t2", 2048, 1),
+    ("rotate_decompose", "peba1_128_t2", 1000, 1),
+    ("rotate_decompose", "peba1_128_t2", 184, 1),
+    ("rotate_decompose", "peba1_128_fast", 8192, 1),
+    ("rotate_decompose", "peba1_128_fast", 1000, 1),
+    ("rotate_decompose", "peba1_128_fast", 67, 1),
     ("cmux_step", "peba1_128_t2", 8192, 8),
     ("cmux_step", "peba1_128_t2", 760, 8),
     ("cmux_step", "peba1_128_t2", 184, 8),
@@ -54,10 +63,14 @@ CASES = (
     ("extprod_recombine", "peba1_128_t2", 8192, 1),
     ("extprod_recombine", "peba1_128_t2", 1000, 1),
 )
-# (preset, batches): whole bootstrap calls, the w_streaming path (one
-# cmux_step call a CMUX step, W built from bk_tp each step) at the
-# authentication's rows and at 8,192.
-BOOTSTRAP_CASES = (("peba1_128_t2_stream", (184, 8192)),)
+# (preset or label of `EXTPROD`, batches): whole bootstrap calls of the
+# paths that call a kernel once a CMUX step: w_streaming (cmux_step, W
+# built from bk_tp each step) at the authentication's rows and at 8,192;
+# the scan's rotate_decompose before the float64 GEMM (peba1_128_fast) and
+# before extprod_recombine at the smoke chains' 2,048 rows.
+BOOTSTRAP_CASES = (("peba1_128_t2_stream", (184, 8192)), ("peba1_128_fast", (2048,)),
+                   ("peba1_128_t2_extprod", (2048,)))
+EXTPROD = "peba1_128_t2_extprod"    # peba1_128_t2 with use_pallas_extprod (no preset)
 
 _TURN = """
 import importlib.util, json, sys
@@ -69,12 +82,39 @@ ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
 device = torch.device("cuda", 0)
 for kernel, params, B, steps in {cases!r}:
-    print(json.dumps(chip_smoke.kernel_case(kernel, params, B, steps, device, timed=True)),
-          flush=True)
+    case = chip_smoke.kernel_case(kernel, params, B, steps, device, timed=True)
+    case["host_us"] = ab.host_us(chip_smoke, kernel, params, B, steps, device)
+    print(json.dumps(case), flush=True)
 for params, batches in {calls!r}:
     for case in ab.bootstrap_calls(params, batches, device):
         print(json.dumps(case), flush=True)
 """
+
+
+def host_us(smoke, kernel: str, params: str, B: int, steps: int, device,
+            batches: int = 5, reps: int = 40) -> float:
+    """Microseconds of host time a call of `kernel`'s wrapper, on `smoke`'s
+    inputs of the case: the median over `batches` batches of `reps` calls,
+    each batch enqueued while the card sleeps (so the card runs none of them
+    before the batch ends) and timed by the host's clock.  The median, since
+    the host's clock catches whatever else its shared cores run."""
+    import statistics
+    import time
+    import torch
+    from peba1_tpu_torch.ops import cuda_kernels
+    args, *_ = smoke._inputs(kernel, smoke.params_of(params), B, steps, device, 0)
+    wrapper = getattr(cuda_kernels, kernel)
+    wrapper(*args)                                                  # warm-up
+    per_call = []
+    for _ in range(batches):
+        torch.cuda.synchronize(device)
+        torch.cuda._sleep(200_000_000)      # about 0.1 s, far longer than a batch
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            wrapper(*args)
+        per_call.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize(device)
+    return statistics.median(per_call)
 
 
 def bootstrap_calls(params: str, batches, device, reps: int = 3) -> "list[dict]":
@@ -88,7 +128,10 @@ def bootstrap_calls(params: str, batches, device, reps: int = 3) -> "list[dict]"
     from peba1_tpu_torch.ops import bootstrap as bs
     from peba1_tpu_torch.ops import cuda_kernels
     from peba1_tpu_torch.params import PRESETS
-    sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(0), PRESETS[params], device)
+    p = (dataclasses.replace(PRESETS["peba1_128_t2"], use_fused_step=False,
+                             use_pallas_extprod=True)
+         if params == EXTPROD else PRESETS[params])
+    sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(0), p, device)
     out = []
     for B in batches:
         bits = np.random.default_rng(B).integers(0, 2, B)
@@ -139,10 +182,12 @@ def main() -> None:
             if case["mismatches"]:
                 raise SystemExit(f"{label}: {case['kernel']} disagrees with its twin")
             key = (case["kernel"], case["params"], case["B"])
-            readings.setdefault(key, []).append((label, case["ms"]))
-    for (kernel, params, B), ms in readings.items():
+            readings.setdefault(key, []).append((label, case))
+    for (kernel, params, B), turns in readings.items():
         print(json.dumps({"kernel": kernel, "params": params, "B": B,
-                          "turns": [t for t, _ in ms], "ms": [m for _, m in ms]}), flush=True)
+                          "turns": [t for t, _ in turns],
+                          **{k: [c.get(k) for _, c in turns]
+                             for k in ("ms", "device_ms", "host_us")}}), flush=True)
 
 
 if __name__ == "__main__":

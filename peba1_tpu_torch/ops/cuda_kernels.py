@@ -9,7 +9,8 @@ of the same name:
   * `blind_rotate_gen_full`: the whole blind rotation, accumulator set-up and
     all n such steps, in one launch (``csrc/blind_rotate_gen_full.cu``);
   * `rotate_decompose`: rotate, difference and gadget digits in natural
-    coefficient order (``csrc/rotate_decompose.cu``);
+    coefficient order, a persistent pass over whole rows fed and drained by
+    bulk copies, its grid from `rotdec_plan` (``csrc/rotate_decompose.cu``);
   * `extprod_recombine`: digits times one step's precomputed weights W, limb
     recombination as the epilogue (``csrc/cmux_step.cu``);
   * `cmux_step`: CMUX steps against precomputed W, the product added into the
@@ -17,23 +18,26 @@ of the same name:
   * `fused_blind_rotate`: the whole blind rotation against the precomputed
     A-matrix ``bk_amat``, in one launch (``csrc/fused_blind_rotate.cu``).
 
-Design notes are in the sources; every kernel but `rotate_decompose` runs on
-``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed shared-memory ring, split-K;
-`cmux_step_gen` and `blind_rotate_gen_full` through
-``csrc/gen_rotation.cuh``) and takes its contraction split from
-`tile_plan`.  On a CPU tensor a wrapper runs its plain twin (``*_plain``,
-the same signature and result in plain PyTorch).  On a CUDA tensor it launches the kernel or raises; it never
-falls back.  Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
-first use into its own shared library, all at once, under the package's
-``build/`` directory (keyed by one hash of every source and the flags; git
-ignores it), and bound with ctypes.  ``launches`` counts the CUDA kernel
-launches each wrapper makes: one per call for every wrapper.
+Design notes are in the sources.  Every kernel but `rotate_decompose` runs on
+the skeleton of ``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed
+shared-memory ring, split-K; `cmux_step_gen` and `blind_rotate_gen_full`
+through ``csrc/gen_rotation.cuh``) and takes its contraction split from
+`tile_plan`; `rotate_decompose` borrows only the header's mbarrier helpers.
+On a CPU tensor a wrapper runs its plain twin (``*_plain``, the same
+signature and result in plain PyTorch).  On a CUDA tensor it launches the
+kernel or raises; it never falls back.  Every ``csrc/*.cu`` is compiled
+with ``nvcc`` for ``sm_90a`` at first use into its own shared library, all
+at once, under the package's ``build/`` directory (keyed by one hash of
+every source and the flags; git ignores it), and bound with ctypes.
+``launches`` counts the CUDA kernel launches each wrapper makes: one per
+call for every wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -58,7 +62,7 @@ _ENTRIES = {
     "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
                                     [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
-    "peba1_rotate_decompose": ("rotate_decompose", [_P] * 3 + [_I] * 5 + [_U, _P]),
+    "peba1_rotate_decompose": ("rotate_decompose", [_P] * 3 + [_I] * 5 + [_U, _I, _I, _I, _P]),
     "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 7 + [_P]),
     "peba1_cmux_step": ("cmux_step", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
     "peba1_fused_blind_rotate": ("fused_blind_rotate",
@@ -129,9 +133,16 @@ def _fn(name: str):
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
-    """Call a C entry point on `device`'s current stream; raise on its error."""
-    with torch.cuda.device(device):
-        err = _fn(entry)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call a C entry point on `device`'s current stream; raise on its error.
+    The entry launches on the current device, so it is switched to `device`
+    only when it is another."""
+    fn = _fn(entry)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 
@@ -224,8 +235,15 @@ def tile_plan(B: int, params: TfheParams, kernel: str, sm_count: int,
     return TilePlan(blocks, blocks, tiles)
 
 
+_sm_counts: "dict[int, int]" = {}
+
+
 def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_counts.get(device.index)
+    if sms is None:
+        sms = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 def _check_rotation_shapes(kernel: str, p: TfheParams) -> None:
@@ -325,26 +343,91 @@ def blind_rotate_gen_full_plain(amt: torch.Tensor, vv: torch.Tensor, mu: int,
 
 # --- rotate_decompose ------------------------------------------------------
 
+ROTDEC_STAGES = 4             # acc rows in flight in a block (the ring)
+ROTDEC_BLOCKS_PER_SM = 4      # the kernel's __launch_bounds__ minimum (256 threads)
+SM_SHARED_BYTES = 233_472     # shared memory of an sm_90 SM (228 KB)
+BLOCK_SHARED_MAX = 232_448    # dynamic shared memory a block may opt into
+BLOCK_RESERVED = 1_024        # shared memory the runtime keeps for each block
+
+
+@dataclasses.dataclass(frozen=True)
+class RotdecPlan:
+    """How `rotate_decompose` runs `rows` rows: `blocks` persistent blocks,
+    block x taking rows x, x + blocks, ...; each block a ring of `stages` acc
+    rows of `row_bytes` (one bulk load each) and two digit rows of
+    `digit_bytes` (one bulk store each), in `smem` bytes of dynamic shared
+    memory (``csrc/rotate_decompose.cu`` carves them in that order, then
+    the stages' amt words and mbarriers).  `args` are the C entry's
+    arguments after the three pointers."""
+
+    rows: int
+    blocks: int
+    stages: int
+    row_bytes: int
+    digit_bytes: int
+    smem: int
+    args: tuple
+
+    def rows_of(self, block: int) -> range:
+        return range(block, self.rows, self.blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def rotdec_plan(B: int, params: TfheParams, sm_count: int) -> RotdecPlan:
+    """`rotate_decompose`'s grid at batch B on a card of `sm_count` SMs: as
+    many blocks as fit on an SM at once by shared memory, at most
+    `ROTDEC_BLOCKS_PER_SM`, on every SM, but never more blocks than rows.
+    The rule reads only the kernel's fixed shared-memory use (no occupancy
+    query on the host); cached, since the scan of steps asks it once a
+    CMUX step.  Raises for shapes the kernel does not take."""
+    p = params
+    if p.N % 64:          # whole 16-byte rows at every k and l (N is a power of two)
+        raise ValueError(f"rotate_decompose kernel needs N % 64 == 0, got N={p.N}")
+    S = ROTDEC_STAGES
+    row, drow = 4 * (p.k + 1) * p.N, (p.k + 1) * p.l * p.N
+    smem = S * row + 2 * drow + 16 * -(-S // 4) + 8 * S
+    if smem > BLOCK_SHARED_MAX:
+        raise ValueError(f"rotate_decompose kernel: {smem} bytes of shared memory a block "
+                         f"at N={p.N}, k={p.k}, l={p.l}; at most {BLOCK_SHARED_MAX}")
+    per_sm = min(ROTDEC_BLOCKS_PER_SM, SM_SHARED_BYTES // (smem + BLOCK_RESERVED))
+    blocks = min(B, per_sm * sm_count)
+    args = (B, p.N.bit_length() - 1, p.k, p.l, p.bgbit, dec.gadget_offset(p), blocks, S, smem)
+    return RotdecPlan(B, blocks, S, row, drow, smem, args)
+
+
 def rotate_decompose(acc_flat: torch.Tensor, amt: torch.Tensor,
                      params: TfheParams) -> torch.Tensor:
     """Fused rotate + difference + gadget decomposition.
 
-    acc_flat: (B, (k+1)*N) int32; amt: (B,) int32 in [0, 2N).  Returns the
-    digits (B, (k+1)*l*N) int8, digit q of coefficient t of polynomial u at
-    column (u*l+q)*N + t, as ``pallas_kernels.rotate_decompose`` does.
+    acc_flat: (B, (k+1)*N) int32, 16-byte aligned on the card; amt: (B,)
+    int32 in [0, 2N).  Returns the digits (B, (k+1)*l*N) int8, digit q of
+    coefficient t of polynomial u at column (u*l+q)*N + t, as
+    ``pallas_kernels.rotate_decompose`` does.  The scan of steps calls it
+    once a CMUX step, so its host path is short: the checks below, then the
+    cached plan.
     """
     p = params
-    k1, G, _ = _sizes(p)
-    B = acc_flat.shape[0]
-    device = _check("rotate_decompose", p, acc_flat=(acc_flat, torch.int32, (B, k1 * p.N)),
-                    amt=(amt, torch.int32, (B,)))
+    B, cols = acc_flat.shape[0], (p.k + 1) * p.N
+    device = acc_flat.device
+    if (acc_flat.dtype != torch.int32 or amt.dtype != torch.int32
+            or acc_flat.shape != (B, cols) or amt.shape != (B,) or amt.device != device
+            or not acc_flat.is_contiguous() or not amt.is_contiguous()):
+        _check("rotate_decompose", p, acc_flat=(acc_flat, torch.int32, (B, cols)),
+               amt=(amt, torch.int32, (B,)))        # raises, naming what is wrong
     if device.type == "cpu":
         return rotate_decompose_plain(acc_flat, amt, p)
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"rotate_decompose: no kernel for {device}")
+    plan = rotdec_plan(B, p, _sm_count(device))
+    digits = torch.empty((B, plan.digit_bytes), dtype=torch.int8, device=device)
     if B == 0:
         return digits
-    _launch("peba1_rotate_decompose", device, acc_flat.data_ptr(), amt.data_ptr(),
-            digits.data_ptr(), B, p.N, p.k, p.l, p.bgbit, dec.gadget_offset(p))
+    acc_ptr, digits_ptr = acc_flat.data_ptr(), digits.data_ptr()
+    if (acc_ptr | digits_ptr) & 15:
+        raise ValueError("rotate_decompose kernel: acc_flat and the digits must be 16-byte "
+                         f"aligned for the bulk copies, got addresses {acc_ptr:#x}, "
+                         f"{digits_ptr:#x}")
+    _launch("peba1_rotate_decompose", device, acc_ptr, amt.data_ptr(), digits_ptr, *plan.args)
     launches["rotate_decompose"] += 1
     return digits
 

@@ -95,6 +95,42 @@ def test_w_kernels_match_plain(cuda_device, kernel, name, B):
     assert ck.launches[kernel] == before + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 67, 1000, 8192])
+@pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast"])
+def test_rotate_decompose_at_its_batches(cuda_device, name, B):
+    """Kernel 3 against its plain twin, one launch: a lone row, fewer rows
+    than blocks, and 8,192 rows, where each block's rows outnumber its ring
+    of stages; the first rows rotate by 0, N and 2N - 1."""
+    p = PRESETS[name]
+    acc, amt, _ = random_step_inputs(p, B, 1, 18, cuda_device)
+    amt = amt[0]
+    amt[:3] = torch.tensor([0, p.N, 2 * p.N - 1][:B])
+    plan = ck.rotdec_plan(B, p, ck._sm_count(cuda_device))
+    assert (B > plan.blocks * plan.stages) == (B == 8192)
+    want = ck.rotate_decompose_plain(acc, amt, p)
+    before = ck.launches["rotate_decompose"]
+    got = ck.rotate_decompose(acc, amt, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches["rotate_decompose"] == before + 1
+
+
+@pytest.mark.cuda
+def test_rotate_decompose_refuses_an_unaligned_acc(cuda_device):
+    """A contiguous view 4 bytes past a 16-byte boundary: the bulk copy
+    cannot take it, and nothing computes the digits another way."""
+    p = PRESETS["peba1_128_t2"]
+    cols = (p.k + 1) * p.N
+    acc = torch.zeros(4 * cols + 1, dtype=torch.int32, device=cuda_device)[1:].view(4, cols)
+    amt = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    assert acc.is_contiguous() and acc.data_ptr() % 16
+    before = ck.launches["rotate_decompose"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.rotate_decompose(acc, amt, p)
+    assert ck.launches["rotate_decompose"] == before
+
+
 FUSED = {"fast": dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True),
          "fast_k256": dataclasses.replace(PRESETS["peba1_128_fast"], use_fused_cmux=True,
                                           amat_block=256),
