@@ -40,7 +40,15 @@ phase printing one JSON line:
      sweep at full width (sweep.IdentifySweep: 4 templates, one a near
      match, in one chunk; probe and templates through io/wire frames), run
      a second time on the same directory, which resumes with 0 launches;
-  8. the kernels line, then {"ok": true, "device": {...}} as the last line.
+  8. the port's tools, in process, on the keysets above where they fit:
+     bench (python -m peba1_tpu_torch.bench, chains of 1 and 2, its JSON
+     line printed as it is) and bench_matches (argmin over 2 full-width
+     templates) at peba1_128_t2_gen, diag campaign (8 chained steps at
+     B=8192, no chain error) at peba1_128_fast_genf, and the sweep CLI at
+     peba1_128_t2_gen and full width (2 templates, one a chunk: stopped
+     after one chunk, resumed, then finalized on the CPU, which must launch
+     nothing);
+  9. the kernels line, then {"ok": true, "device": {...}} as the last line.
 Every path's launch counts are set to 0 just before it runs and read just
 after.  Any failure exits non-zero before the last line.  With no CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -73,6 +81,7 @@ KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 760, 8),
     ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
     ("cmux_step_gen", "ring_2048_gen", 256, 8),
+    ("cmux_step_gen", "ring_2048_gen", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 760, 8),
@@ -377,16 +386,6 @@ def expected_launches(p, calls: int) -> dict:
     return want
 
 
-def chain(ck, ct, steps: int):
-    """`steps` serialized identity bootstraps AND(x, x) = x (bench.py:53-63)."""
-    from peba1_tpu_torch import gates, lwe
-    from peba1_tpu_torch.ops import bootstrap as bs
-    for _ in range(steps):
-        pre = lwe.Lwe(ct.a * 2, ct.b * 2 - gates.MU_1_8)
-        ct = bs.bootstrap(ck, pre, gates.MU_1_8)
-    return ct
-
-
 def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "",
                keyset=None):
     """Keygen at `params` (a preset name or TfheParams), or the given
@@ -394,6 +393,7 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
     `steps` bootstraps of B bits, decrypted and counted."""
     import torch
     from peba1_tpu_torch import gates, keys
+    from peba1_tpu_torch.bench import chain
     from peba1_tpu_torch.ops import cuda_kernels
     p = params_of(params) if isinstance(params, str) else params
     label = label or params
@@ -666,6 +666,125 @@ def phase_sweep(keyset, nslots: int, bitsize: int, n_templates: int, chunk: int,
     return out
 
 
+def tool_device(device) -> str:
+    """The --device value of the port's tools for `device`."""
+    import torch
+    return torch.device(device).type
+
+
+def _quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its progress lines (stdout) and events (stderr)
+    kept out of the smoke's output; returns fn's result."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase_bench(keyset, device, label: str) -> dict:
+    """The port's headline benchmark (python -m peba1_tpu_torch.bench) on the
+    keyset, with short chains; its own JSON line is printed as it is."""
+    from peba1_tpu_torch import bench
+    from peba1_tpu_torch.ops import cuda_kernels
+    s1, s2, reps = 1, 2, 1
+    argv = ["--params", label, "--s1", str(s1), "--s2", str(s2), "--reps", str(reps),
+            "--device", tool_device(device)]
+    cuda_kernels.reset_launches()
+    rec = bench.main(argv, keyset=keyset)
+    launches = dict(cuda_kernels.launches)
+    calls = (s1 + s2) * (1 + reps)               # a warm-up and `reps` runs a length
+    check(rec["batch_correct_frac"] == 1.0, f"bench: fraction {rec['batch_correct_frac']}")
+    if torch_is_cuda(device):
+        want = expected_launches(keyset[1].params, calls)
+        check(launches == want, f"bench launched {launches}, want {want}")
+    return {"phase": "bench", "params": label, "value": rec["value"],
+            "batch_correct_frac": rec["batch_correct_frac"], "launches": launches}
+
+
+def phase_campaign(keyset, B: int, steps: int, device, label: str) -> dict:
+    """The noise campaign (python -m peba1_tpu_torch.diag campaign) on the
+    keyset: `steps` chained bootstraps of B bits, no chain error."""
+    from peba1_tpu_torch import diag
+    from peba1_tpu_torch.ops import cuda_kernels
+    argv = ["campaign", "--params", label, "--batch", str(B), "--steps", str(steps),
+            "--device", tool_device(device)]
+    cuda_kernels.reset_launches()
+    rec = _quiet(diag.main, argv, keyset=keyset)
+    launches = dict(cuda_kernels.launches)
+    check(rec["chain_error_frac"] == 0.0 and rec["final_decode_errs"] == 0,
+          f"campaign: {rec}")
+    if torch_is_cuda(device):
+        want = expected_launches(keyset[1].params, steps)
+        check(launches == want, f"campaign launched {launches}, want {want}")
+    return {"phase": "campaign", **{k: rec[k] for k in (
+        "params", "gates", "batch", "chain_steps", "chain_error_frac", "phase_sigma",
+        "margin_sigmas", "seconds")}, "launches": launches}
+
+
+def phase_sweep_cli(params: str, nslots: int, bitsize: int, n_templates: int,
+                    device) -> dict:
+    """The sweep CLI (python -m peba1_tpu_torch.sweep_identify), one template
+    a chunk: a run stopped after one chunk, a resume to the end, then a
+    finalize on the CPU, which must launch nothing."""
+    import shutil
+    from peba1_tpu_torch import sweep_identify
+    from peba1_tpu_torch.ops import cuda_kernels
+    from peba1_tpu_torch.ops.bootstrap import selected_kernel
+    from peba1_tpu_torch.params import PRESETS
+    out_dir = os.path.join(ROOT, "build", "smoke_sweep_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["--params", params, "--n-templates", str(n_templates), "--chunk", "1",
+            "--nslots", str(nslots), "--bitsize", str(bitsize), "--dir", out_dir]
+    on_card = base + ["--device", tool_device(device)]
+    cuda_kernels.reset_launches()
+    first = _quiet(sweep_identify.main, on_card + ["--max-chunks", "1"])
+    resumed = _quiet(sweep_identify.main, on_card)
+    launches = dict(cuda_kernels.launches)
+    cuda_kernels.reset_launches()
+    final = _quiet(sweep_identify.main, base + ["--finalize", "--device", "cpu"])
+    final_launches = dict(cuda_kernels.launches)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(first["status"] == "interrupted" and first["chunks_done"] == 1,
+          f"sweep CLI, first run: {first}")
+    check(resumed["status"] == "complete" and resumed["resumed_from_disk"] == 1
+          and resumed["correct_frac"] == 1.0, f"sweep CLI, resume: {resumed}")
+    check(final["status"] == "complete" and final["correct_frac"] == 1.0
+          and final["decisions_verified"] == n_templates, f"sweep CLI, finalize: {final}")
+    check(not any(final_launches.values()), f"the finalize launched {final_launches}")
+    if torch_is_cuda(device):
+        kernel = selected_kernel(PRESETS[params])
+        check(launches[kernel] > 0, f"the sweep CLI launched {launches}")
+    return {"phase": "sweep_cli", "params": params, "nslots": nslots, "bitsize": bitsize,
+            "n_templates": n_templates, "chunk_seconds": {**first["chunk_seconds"],
+                                                          **resumed["chunk_seconds"]},
+            "templates_per_s_steady": resumed["templates_per_s_steady"],
+            "correct_frac": resumed["correct_frac"],
+            "fingerprint_match": final["fingerprint_match"], "launches": launches,
+            "finalize_launches": final_launches}
+
+
+def phase_matches(keyset, config: str, n_templates: int, nslots: int, bitsize: int,
+                  device, label: str) -> dict:
+    """The protocol benchmark (python -m peba1_tpu_torch.bench_matches) on
+    the keyset: every decision right."""
+    from peba1_tpu_torch import bench_matches
+    from peba1_tpu_torch.ops import cuda_kernels
+    argv = ["--config", config, "--params", label, "--n-templates", str(n_templates),
+            "--nslots", str(nslots), "--bitsize", str(bitsize),
+            "--device", tool_device(device)]
+    cuda_kernels.reset_launches()
+    rec = _quiet(bench_matches.main, argv, keyset=keyset)
+    launches = dict(cuda_kernels.launches)
+    check(rec["correct_frac"] == 1.0, f"bench_matches {config}: {rec}")
+    if torch_is_cuda(device):
+        want = expected_launches(keyset[1].params, rec["launches"])
+        check(launches == want and rec["launches"] > 0,
+              f"bench_matches launched {launches}, want {want}")
+    return {"phase": "matches", **{k: rec[k] for k in (
+        "metric", "value", "seconds", "items", "launches", "nslots", "bitsize", "params",
+        "correct_frac", "peak_memory_bytes")}, "kernel_launches": launches}
+
+
 def kernels_line(kernel: dict, main: dict) -> dict:
     """One entry per kernel: its first (largest) case's numbers, the largest
     error over all its cases, and its launches on its main path."""
@@ -723,6 +842,8 @@ def main() -> int:
         auth = phase_auth(keyset, 128, 8, device, "peba1_128_t2_gen")
         emit(auth)
         path("auth peba1_128_t2_gen", auth["launches"], "cmux_step_gen")
+        emit(phase_bench(keyset, device, "peba1_128_t2_gen"))
+        emit(phase_matches(keyset, "argmin", 2, 128, 8, device, "peba1_128_t2_gen"))
         del keyset
         free_device_memory()
 
@@ -732,6 +853,7 @@ def main() -> int:
         auth = phase_auth(keyset, 128, 8, device, "peba1_128_fast_genf")
         emit(auth)
         path("auth peba1_128_fast_genf", auth["launches"], "blind_rotate_gen_full")
+        emit(phase_campaign(keyset, 8192, 8, device, "peba1_128_fast_genf"))
         del keyset
         free_device_memory()
 
@@ -772,6 +894,8 @@ def main() -> int:
         path(f"sweep {fused}", sweep["launches"], "fused_blind_rotate")
         del keyset
         free_device_memory()
+
+        emit(phase_sweep_cli("peba1_128_t2_gen", 128, 8, 2, device))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

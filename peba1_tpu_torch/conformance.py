@@ -129,10 +129,11 @@ def eval_circuit(be, corpus: dict):
 
 
 
-def eval_cipher(sk, ck, corpus: dict, gen):
+def eval_cipher(sk, ck, corpus: dict, gen, batch: int | None = None):
     """Encrypt the corpus under `sk` and run the cipher circuit on `ck`'s
-    device as ONE batch, with the corpus's own nonces; returns the decrypted
-    (b (M,), y (M,)) ints."""
+    device with the corpus's own nonces, `batch` cases a circuit evaluation
+    (all at once by default; smaller chunks bound the card's memory);
+    returns the decrypted (b (M,), y (M,)) ints."""
     from . import circuits as cc
     from . import gates
     from .backends import CipherBackend
@@ -141,12 +142,17 @@ def eval_cipher(sk, ck, corpus: dict, gen):
     bitsize = corpus["bitsize"]
     t, p, bounds, r0, r1, _, _ = corpus_arrays(corpus)
     M, dev = t.shape[0], sk.device
-    be = CipherBackend(ck)
-    et = gates.encrypt_bits(gen, sk, int_to_bits(t, bitsize, dev))
-    ep = gates.encrypt_bits(gen, sk, int_to_bits(p, bitsize, dev))
-    eb = gates.encrypt_bits(gen, sk, int_to_bits(bounds, 3 * bitsize, dev))
-    b_word = cc.function_f(be, ep, et, eb, bitsize)
-    y_word = cc.function_g(be, b_word, cc.const_word(be, r0, bitsize, (M,)),
-                           cc.const_word(be, r1, bitsize, (M,)), bitsize)
-    return (bits_to_int(gates.decrypt_bits(b_word, sk)),
-            bits_to_int(gates.decrypt_bits(y_word, sk)))
+    step = batch or M
+    bs_out, ys_out = [], []
+    for lo in range(0, M, step):
+        hi = min(lo + step, M)
+        be = CipherBackend(ck)
+        et = gates.encrypt_bits(gen, sk, int_to_bits(t[lo:hi], bitsize, dev))
+        ep = gates.encrypt_bits(gen, sk, int_to_bits(p[lo:hi], bitsize, dev))
+        eb = gates.encrypt_bits(gen, sk, int_to_bits(bounds[lo:hi], 3 * bitsize, dev))
+        b_word = cc.function_f(be, ep, et, eb, bitsize)
+        y_word = cc.function_g(be, b_word, cc.const_word(be, r0[lo:hi], bitsize, (hi - lo,)),
+                               cc.const_word(be, r1[lo:hi], bitsize, (hi - lo,)), bitsize)
+        bs_out.append(bits_to_int(gates.decrypt_bits(b_word, sk)))
+        ys_out.append(bits_to_int(gates.decrypt_bits(y_word, sk)))
+    return np.concatenate(bs_out), np.concatenate(ys_out)

@@ -21,6 +21,7 @@ from . import clear, gates, keys
 from .backends import CipherBackend
 from .params import PRESETS, ProtocolParams
 from .protocol import ClientDevice, Server
+from .utils import device as devinfo
 from .utils.bits import bits_to_int
 
 
@@ -29,18 +30,13 @@ def generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class _Timer:
     def __init__(self, device: torch.device):
         self.device = device
         self.t = time.time()
 
     def lap(self) -> float:
-        _sync(self.device)
+        devinfo.sync(self.device)
         now = time.time()
         dt = now - self.t
         self.t = now
@@ -160,10 +156,10 @@ def run(params_name: str = "toy", nslots: int = 128, bitsize: int = 8,
     rec = client.enroll(g_enc, template)
     server.register(rec)
     enc_bound = client.encrypt_word(g_enc, bound, 3 * bitsize)
-    _sync(device)
+    devinfo.sync(device)
     t0 = time.time()
     res = server.authenticate(g_auth, enc_true, rec.template_ct, enc_bound)
-    _sync(device)
+    devinfo.sync(device)
     t_auth = time.time() - t0
     y = client.prove(res.enc_y)
     b = int(client.decrypt_word(res.enc_b))
@@ -197,17 +193,14 @@ def main(argv=None):
                     help="write the results dict as a JSON artifact")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available "
-                         "(pass --device cpu to run the plain path)")
+    devinfo.require(args.device)
     results = run(args.params, args.nslots, args.bitsize, args.loop, args.seed,
                   args.skip_cipher_suite, args.device)
     if args.out:
         results["params"] = args.params
         results["nslots"] = args.nslots
         results["bitsize"] = args.bitsize
-        results["device"] = (torch.cuda.get_device_name(0)
-                             if args.device == "cuda" else "cpu")
+        results["device"] = devinfo.name(args.device)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1, default=float)
 

@@ -41,6 +41,11 @@ def unflatten(ct: lwe.Lwe, shape) -> lwe.Lwe:
     return lwe.Lwe(ct.a.reshape(shape + (ct.dim,)), ct.b.reshape(shape))
 
 
+def gate_bootstrap(ck: CloudKey, pre: lwe.Lwe) -> lwe.Lwe:
+    """Bootstrap an arbitrary-shaped batch of prepared gate inputs to +-1/8."""
+    return unflatten(bs.bootstrap(ck, flatten(pre), MU_1_8), pre.shape)
+
+
 def lincomb_bootstrap(ck: CloudKey, a: lwe.Lwe, b: lwe.Lwe, wa, wb, offset) -> lwe.Lwe:
     """Generic two-input gate: bootstrap(wa*a + wb*b + (0, offset)).
 

@@ -96,3 +96,8 @@ def stack(cts, axis: int = 0) -> Lwe:
 def concatenate(cts, axis: int = 0) -> Lwe:
     return Lwe(torch.cat([c.a for c in cts], dim=_a_axis(axis)),
                torch.cat([c.b for c in cts], dim=axis))
+
+
+def where(pred: torch.Tensor, x: Lwe, y: Lwe) -> Lwe:
+    """Row-wise select: x where pred holds, else y (pred has the batch shape)."""
+    return Lwe(torch.where(pred[..., None], x.a, y.a), torch.where(pred, x.b, y.b))

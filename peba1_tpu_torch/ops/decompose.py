@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..params import TfheParams
-from ..torus import MASK32, as_u32
+from ..torus import MASK32, as_u32, wrap_i32
 
 
 def gadget_offset(params: TfheParams) -> int:
@@ -34,3 +34,10 @@ def decompose(x: torch.Tensor, params: TfheParams) -> torch.Tensor:
                           dtype=torch.int64, device=x.device)
     d = (u[..., None] >> shifts) & (params.bg - 1)
     return (d - params.half_bg).to(torch.int8)
+
+
+def recompose(digits: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """sum_p digits[..., p] * 2^(32-(p+1)*bgbit) as int32 (approximate inverse)."""
+    shifts = torch.tensor([32 - (p + 1) * params.bgbit for p in range(params.l)],
+                          dtype=torch.int64, device=digits.device)
+    return wrap_i32((digits.to(torch.int64) << shifts).sum(dim=-1))

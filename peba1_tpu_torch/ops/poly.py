@@ -292,3 +292,16 @@ def key_negacyclic_mul(key_bits: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def dot_key_i32(a: torch.Tensor, key_bits: torch.Tensor) -> torch.Tensor:
     """Exact <a, key> mod 2^32 for a binary key: (..., n) int32 x (n,) -> (...,)."""
     return wrap_i32(exact_matmul(a, key_bits))
+
+
+def negacyclic_extproduct_reference(digits: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Oracle: (B, G, N) int32 digits x (G, O, N) int32 -> (B, O, N) int32,
+    mod 2^32.  Each product is reduced before it is summed, so the int64 sums
+    of G*N terms cannot overflow."""
+    m = negacyclic_matrix(q.to(torch.int32)).to(torch.int64)     # (G, O, N, N)
+    d = digits.to(torch.int64)
+    out = torch.zeros((d.shape[0], m.shape[1], m.shape[3]), dtype=torch.int64,
+                      device=d.device)
+    for g in range(m.shape[0]):
+        out += ((d[:, g, None, :, None] * m[g][None]) & MASK32).sum(dim=-2)
+    return wrap_i32(out)

@@ -19,8 +19,8 @@ import torch
 from . import circuits as cc
 from . import gates, lwe
 from .backends import CipherBackend
-from .keys import CloudKey, SecretKey
-from .params import PEBA1_PROTOCOL, ProtocolParams
+from .keys import CloudKey, SecretKey, keygen
+from .params import PEBA1_PROTOCOL, ProtocolParams, TfheParams
 from .utils.bits import bits_to_int, int_to_bits
 
 
@@ -32,17 +32,27 @@ class ClientRecord:
     template_ct: lwe.Lwe          # (..., nslots, bitsize) encrypted bits
     nslots: int
 
+    def get_id(self) -> int:
+        return self.client_id
+
+    def get_ctxt(self) -> lwe.Lwe:
+        return self.template_ct
+
+    def get_nb_slots(self) -> int:
+        return self.nslots
+
 
 class ClientDevice:
     """Client-side identity: secret key + plaintext biometrics; the only
     object in the system that can encrypt/decrypt."""
 
     def __init__(self, client_id: int, sk: SecretKey, ck: CloudKey,
-                 proto: ProtocolParams = PEBA1_PROTOCOL):
+                 proto: ProtocolParams = PEBA1_PROTOCOL, minimum_lambda: int = 128):
         self.client_id = client_id
         self.sk = sk
         self.ck = ck  # public cloud key (shared with the server)
         self.proto = proto
+        self.minimum_lambda = minimum_lambda
 
     def encrypt_vector(self, gen: torch.Generator, values) -> lwe.Lwe:
         """values (..., nslots) ints -> encrypted bits (..., nslots, bitsize)."""
@@ -152,3 +162,11 @@ class Server:
         idx_words = cc.const_word(be, np.arange(n_templates), ibits, (n_templates,))
         return cc.argmin_tree(be, dists, idx_words)
 
+
+
+def make_system(gen: torch.Generator, params: TfheParams, device, client_id: int = 7,
+                proto: ProtocolParams = PEBA1_PROTOCOL):
+    """Keygen on `device` + client device + server (the reference's main.cpp
+    set-up; its ID 007 is octal, so 7)."""
+    sk, ck = keygen(gen, params, device)
+    return ClientDevice(client_id, sk, ck, proto), Server(ck, proto)

@@ -13,6 +13,14 @@ from .ops import poly
 from .params import TfheParams
 
 
+def trivial(mu_poly: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """Noiseless trivial TRLWE of message polynomial(s) (..., N) -> (..., k+1, N)."""
+    mu_poly = torch.as_tensor(mu_poly, dtype=torch.int32)
+    zeros = torch.zeros(mu_poly.shape[:-1] + (params.k, params.N), dtype=torch.int32,
+                        device=mu_poly.device)
+    return torch.cat([zeros, mu_poly[..., None, :]], dim=-2)
+
+
 def encrypt_zero(gen: torch.Generator, tlwe_key: torch.Tensor,
                  params: TfheParams, shape=()) -> torch.Tensor:
     """TRLWE encryptions of 0: shape -> (*shape, k+1, N), on tlwe_key's device."""
@@ -22,6 +30,20 @@ def encrypt_zero(gen: torch.Generator, tlwe_key: torch.Tensor,
     e = torus.gaussian_torus32(gen, params.tlwe_stdev, shape + (params.N,), dev)
     body = poly.key_negacyclic_mul(tlwe_key, a) + e
     return torch.cat([a, body[..., None, :]], dim=-2)
+
+
+def encrypt(gen: torch.Generator, tlwe_key: torch.Tensor, mu_poly: torch.Tensor,
+            params: TfheParams) -> torch.Tensor:
+    """TRLWE encryption of message polynomial(s) (..., N) -> (..., k+1, N)."""
+    z = encrypt_zero(gen, tlwe_key, params, shape=mu_poly.shape[:-1])
+    z[..., -1, :] += mu_poly.to(torch.int32)
+    return z
+
+
+def phase(ct: torch.Tensor, tlwe_key: torch.Tensor) -> torch.Tensor:
+    """(..., k+1, N) -> (..., N): body - sum_u s_u * a_u."""
+    a, body = ct[..., :-1, :], ct[..., -1, :]
+    return body - poly.key_negacyclic_mul(tlwe_key, a)
 
 
 def sample_extract(ct: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -50,3 +72,18 @@ def trgsw_encrypt(gen: torch.Generator, tlwe_key: torch.Tensor,
             h = torus.wrap_i32(msg.to(torch.int64) << (32 - (p + 1) * params.bgbit))
             z[..., u * params.l + p, u, 0] += h
     return z
+
+
+def external_product_reference(digits_fn, trlwe: torch.Tensor, trgsw: torch.Tensor,
+                               params: TfheParams) -> torch.Tensor:
+    """Oracle external product: decomp(trlwe) . trgsw.
+
+    trlwe: (..., k+1, N); trgsw: ((k+1)*l, k+1, N); digits_fn: a decompose
+    function (ops.decompose.decompose with the parameters bound).
+    """
+    G = (params.k + 1) * params.l
+    d = digits_fn(trlwe).movedim(-1, -2)             # (..., k+1, l, N)
+    batch = d.shape[:-3]
+    flat = poly.negacyclic_extproduct_reference(
+        d.reshape((-1, G, params.N)), trgsw.reshape(G, params.k + 1, params.N))
+    return flat.reshape(batch + (params.k + 1, params.N))

@@ -27,6 +27,19 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+def double_to_torus32(x, dtype: torch.dtype = torch.float32,
+                      device=None) -> torch.Tensor:
+    """Map a real number (mod 1) to torus32.
+
+    Computed in `dtype`: float32 is the JAX package's precision without
+    ``jax_enable_x64`` (its default), float64 the precision with it.
+    """
+    frac = torch.as_tensor(x, dtype=dtype, device=device)
+    frac = frac - torch.floor(frac)
+    u = torch.remainder(torch.round(frac * _TWO32), _TWO32)
+    return wrap_i32(u.to(torch.int64))
+
+
 def modswitch_to_torus32(mu: int, msize: int) -> int:
     """Exact integer version of TFHE's modSwitchToTorus32 (python ints).
 
@@ -36,6 +49,12 @@ def modswitch_to_torus32(mu: int, msize: int) -> int:
     phase64 = (mu * interval) % (1 << 64)
     t = ((phase64 + (1 << 31)) >> 32) & MASK32
     return int(np.int64(t).astype(np.int32))
+
+
+def torus32_to_double(t, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Map torus32 back to a real in [-1/2, 1/2), in `dtype` (float32 as the
+    JAX package without ``jax_enable_x64``)."""
+    return torch.as_tensor(t, dtype=torch.int32).to(dtype) / _TWO32
 
 
 def gaussian_torus32(gen: torch.Generator, stdev: float, shape,

@@ -345,3 +345,16 @@ def test_bootstrap_on_the_card_equals_the_cpu(cuda_device, p):
                        gates.MU_1_8)
     assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)
     np.testing.assert_array_equal(gates.decrypt_bits(want, sk).numpy(), bits)
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda_device):
+    """The port's headline benchmark runs on the card at toy_t2 (kernel 4,
+    cmux_step) and decrypts every chained bit."""
+    from peba1_tpu_torch import bench
+    before = ck.launches["cmux_step"]
+    rec = bench.main(["--params", "toy_t2", "--batch", "256", "--s1", "1", "--s2", "2",
+                      "--reps", "1", "--device", "cuda"])
+    assert rec["batch_correct_frac"] == 1.0 and rec["value"] > 0
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit"]
+    assert ck.launches["cmux_step"] - before == 6        # 1 + 2 warm-up, 1 + 2 timed

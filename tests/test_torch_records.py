@@ -1,0 +1,87 @@
+"""Pins of the port's committed records from the card (H100_*.json).
+
+The noise campaigns are held to the JAX package's pin of its own campaigns
+(tests/test_noise.py: at least 1e6 chained gates, no chain or decode error,
+a Gaussian per-gate error bound below 1e-9, a margin of at least 6 sigma),
+at the reference record's gate count, and their phase sigma to the
+reference's sigma at the same parameters within 5%: about 6 standard errors
+of a sigma estimated from 8,192 samples, plus the spread from one key to
+another.  The other records are held to what their runs claimed.
+"""
+
+import glob
+import json
+import math
+import os
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+NOISE_PARAMS = ("peba1_128_fast_genf", "peba1_128_t2", "ring_2048_gen")
+
+
+def load(name):
+    with open(os.path.join(ROOT, name)) as f:
+        return json.load(f)
+
+
+def reference_campaigns():
+    """The JAX package's committed campaigns (NOISE_*.json), by params."""
+    recs = [load(os.path.basename(p)) for p in glob.glob(os.path.join(ROOT, "NOISE_*.json"))]
+    return {r["params"]: r for r in recs}
+
+
+def on_the_card(rec):
+    assert rec["device"].startswith("NVIDIA H100") and rec["power_limit"].endswith(" W")
+
+
+@pytest.mark.parametrize("params", NOISE_PARAMS)
+def test_noise_campaign(params):
+    rec = load(f"H100_NOISE_{params}.json")
+    ref = reference_campaigns()[params]
+    assert rec["params"] == params and rec["metric"] == ref["metric"]
+    on_the_card(rec)
+    assert rec["gates"] >= 10**6 and rec["gates"] == ref["gates"]
+    assert rec["batch"] == ref["batch"] and rec["chain_steps"] == ref["chain_steps"]
+    assert rec["chain_error_frac"] == 0.0
+    assert rec["final_decode_errs"] == 0
+    per_gate = math.erfc(rec["margin"] / rec["phase_sigma"] / math.sqrt(2))
+    assert per_gate < 1e-9
+    assert rec["margin_sigmas"] >= 6.0
+    assert abs(rec["phase_sigma"] / ref["phase_sigma"] - 1) <= 0.05, (
+        rec["phase_sigma"], ref["phase_sigma"])
+
+
+def test_bench_record():
+    rec = load("H100_BENCH.json")
+    assert [r["params"] for r in rec["runs"]] == [
+        "peba1_128_t2_gen", "peba1_128_fast_genf", "peba1_128_t2"]
+    for r in rec["runs"]:
+        on_the_card(r)
+        assert r["metric"] == "gate_bootstraps_per_s_per_chip"
+        assert r["batch"] == 8192 and r["chain_lengths"] == [2, 10]
+        assert r["batch_correct_frac"] == 1.0 and r["t_s2"] > r["t_s1"] > 0
+        assert r["value"] == pytest.approx(8192 * 8 / (r["t_s2"] - r["t_s1"]))
+
+
+def test_sweep_record():
+    rec = load("H100_SWEEP.json")
+    run, final = rec["resumed"], rec["finalize"]
+    assert rec["interrupted"]["status"] == "interrupted"
+    on_the_card(run)
+    assert run["status"] == "complete" and run["resumed_from_disk"] >= 1
+    assert run["n_templates"] == 128 and run["nslots"] == 128 and run["bitsize"] == 8
+    assert run["decisions_verified"] == 128 and run["correct_frac"] == 1.0
+    assert final["finalize_mode"] and final["finalize_device"] == "cpu"
+    assert final["status"] == "complete" and final["decisions_verified"] == 128
+    assert final["correct_frac"] == 1.0 and final["sk_device"] == "cpu"
+
+
+def test_matches_record():
+    rec = load("H100_BENCH_matches.json")
+    for config in ("identify", "argmin", "pairs"):
+        r = rec[config]
+        on_the_card(r)
+        assert r["metric"] == f"encrypted_{config}_matches_per_s"
+        assert r["items"] == 64 and r["nslots"] == 128 and r["bitsize"] == 8
+        assert r["correct_frac"] == 1.0 and r["peak_memory_bytes"] > 0
