@@ -48,7 +48,17 @@ phase printing one JSON line:
      peba1_128_t2_gen and full width (2 templates, one a chunk: stopped
      after one chunk, resumed, then finalized on the CPU, which must launch
      nothing);
-  9. the kernels line, then {"ok": true, "device": {...}} as the last line.
+  9. the parallel layer (peba1_tpu_torch.parallel) at peba1_128_t2_gen on
+     the keyset of phase 4, in a world of one rank on NCCL (mesh 1x1):
+     sharded_bootstrap at B=8192 bit-equal to ops/bootstrap.bootstrap,
+     launching cmux_step_gen, both timed in turns; sharded_bootstrap_ringtp
+     with overlap_blocks 1 and 2 at 184 rows over the full n, bit-equal,
+     launching nothing (its column product is plain float64, as in the JAX
+     package), and the share of its time in the column products;
+     sharded_identify at full width on two templates, one a near match;
+     after phase 3, the exact NTT (ops/ntt.py) on the card at N=1024 and
+     2048 against the naive product, and its round trip;
+ 10. the kernels line, then {"ok": true, "device": {...}} as the last line.
 Every path's launch counts are set to 0 just before it runs and read just
 after.  Any failure exits non-zero before the last line.  With no CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -233,10 +243,8 @@ def peak_gb(device) -> float:
 
 def phase_device() -> dict:
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = card_label(torch.device("cuda", 0))
+    print(smi, flush=True)
     return {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -785,16 +793,200 @@ def phase_matches(keyset, config: str, n_templates: int, nslots: int, bitsize: i
         "correct_frac", "peak_memory_bytes")}, "kernel_launches": launches}
 
 
+def card_label(device) -> str:
+    """The card's name and power limit as nvidia-smi prints them ("cpu" in
+    a rehearsal on the CPU): stated beside every time a phase prints."""
+    if not torch_is_cuda(device):
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn, device) -> float:
+    """Milliseconds of one call of fn(): CUDA events on the card, the host's
+    clock around a synchronized call on the CPU."""
+    import torch
+    if not torch_is_cuda(device):
+        t0 = time.time()
+        fn()
+        return (time.time() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(keyset, B: int, rows: int, nslots: int, bitsize: int, device,
+                   label: str, seed: int = 0) -> dict:
+    """The parallel layer (peba1_tpu_torch.parallel) in a world of one rank
+    on the card's own backend (NCCL; gloo in a rehearsal on the CPU), mesh
+    1x1: sharded_bootstrap at B rows bit-equal to ops/bootstrap.bootstrap
+    and launching the preset's kernel, both timed in turns (plain, sharded,
+    sharded, plain); sharded_bootstrap_ringtp with overlap_blocks 1 and 2
+    at `rows` over the full n, bit-equal and launching no kernel, with the
+    share of its time that n column products (extprod_toeplitz_cols_i8 at
+    the same shapes, timed alone) take; sharded_identify at full width on
+    two templates, one a near match, decided right."""
+    import torch
+    import torch.distributed as dist
+    from peba1_tpu_torch import gates
+    from peba1_tpu_torch.ops import bootstrap as bs
+    from peba1_tpu_torch.ops import cuda_kernels, poly
+    from peba1_tpu_torch.parallel import mesh as pmesh
+    from peba1_tpu_torch.parallel import shard as pshard
+    from peba1_tpu_torch.params import ProtocolParams
+    from peba1_tpu_torch.protocol import ClientDevice
+    sk, ck = keyset
+    p = ck.params
+    kernel = bs.selected_kernel(p)
+    rng = np.random.default_rng(seed + 9)
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    pmesh.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if torch_is_cuda(device) else "gloo"),
+              f"parallel: backend {backend} on {device}")
+        mesh = pmesh.make_mesh(1, 1)
+
+        bits = rng.integers(0, 2, B)
+        ct = gates.encrypt_bits(gen, sk, bits)
+        want = bs.bootstrap(ck, ct, gates.MU_1_8)
+        cuda_kernels.reset_launches()
+        got = pshard.sharded_bootstrap(mesh, ck, ct, gates.MU_1_8)
+        sync(device)
+        launches = dict(cuda_kernels.launches)
+        boot_mismatches = int((got.a != want.a).sum() + (got.b != want.b).sum())
+        check(boot_mismatches == 0, f"parallel: sharded_bootstrap differs in {boot_mismatches}")
+        check(bool((gates.decrypt_bits(got, sk).cpu().numpy() == bits).all()),
+              "parallel: sharded_bootstrap decrypts wrong")
+        if torch_is_cuda(device):
+            check(kernel is not None and launches[kernel] > 0,
+                  f"parallel: sharded_bootstrap launched {launches}")
+        turns = [timed_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8), device),
+                 timed_ms(lambda: pshard.sharded_bootstrap(mesh, ck, ct, gates.MU_1_8), device),
+                 timed_ms(lambda: pshard.sharded_bootstrap(mesh, ck, ct, gates.MU_1_8), device),
+                 timed_ms(lambda: bs.bootstrap(ck, ct, gates.MU_1_8), device)]
+        boot = {"B": B, "mismatches": boot_mismatches, "launches": launches,
+                "ms_turns": turns, "plain_ms": (turns[0] + turns[3]) / 2,
+                "sharded_ms": (turns[1] + turns[2]) / 2,
+                "ratio": (turns[1] + turns[2]) / (turns[0] + turns[3])}
+
+        bits = rng.integers(0, 2, rows)
+        ct = gates.encrypt_bits(gen, sk, bits)
+        want = bs.bootstrap(ck, ct, gates.MU_1_8)
+        ring = []
+        for K in (1, 2):
+            cuda_kernels.reset_launches()
+            got = None
+
+            def run():
+                nonlocal got
+                got = pshard.sharded_bootstrap_ringtp(mesh, ck, ct, gates.MU_1_8,
+                                                      overlap_blocks=K)
+            ms = timed_ms(run, device)
+            mism = int((got.a != want.a).sum() + (got.b != want.b).sum())
+            check(mism == 0, f"parallel: ring-TP with overlap_blocks={K} differs in {mism}")
+            check(not any(cuda_kernels.launches.values()),
+                  f"parallel: ring-TP launched {cuda_kernels.launches}")
+            ring.append({"overlap_blocks": K, "rows": rows, "steps": p.n,
+                         "mismatches": mism, "ms": ms})
+        G = (p.k + 1) * p.l
+        d = torch.as_tensor(rng.integers(-p.half_bg, p.half_bg, (rows, G, p.N)).astype(np.int8),
+                            device=device)
+
+        def products():
+            for s in range(p.n):
+                poly.extprod_toeplitz_cols_i8(d, ck.bk_tp[s], p.limb_plan, 0, p.N)
+        product_ms = timed_ms(products, device)
+
+        bound = 2 * nslots
+        proto = ProtocolParams(nslots=nslots, bitsize=bitsize, max_bitsize=3 * bitsize,
+                               mul_width=3 * bitsize - 1, bound_match=bound)
+        hi = (1 << bitsize) - 1
+        templates = rng.integers(1, hi + 1, (2, nslots))
+        probe = np.minimum(templates[0] + 1, hi)
+        dist_clear = ((templates - probe) ** 2).sum(1)
+        want_b = (dist_clear > bound).astype(int)
+        check(want_b.tolist() == [0, 1], f"test vectors: distances {dist_clear.tolist()}")
+        client = ClientDevice(7, sk, ck, proto)
+        t_ct = client.encrypt_vector(gen, templates)
+        p_ct = client.encrypt_vector(gen, probe)
+        bound_ct = client.encrypt_word(gen, bound, 3 * bitsize)
+        sync(device)
+        cuda_kernels.reset_launches()
+        t0 = time.time()
+        out = pshard.sharded_identify(mesh, ck, p_ct, t_ct, bound_ct, bitsize)
+        sync(device)
+        ident_s = time.time() - t0
+        ident_launches = dict(cuda_kernels.launches)
+        b = client.decrypt_word(out)
+        check(np.array_equal(b, want_b), f"parallel: identify decisions {b.tolist()}")
+        if torch_is_cuda(device):
+            check(ident_launches[kernel] > 0,
+                  f"parallel: sharded_identify launched {ident_launches}")
+    finally:
+        dist.destroy_process_group()
+    return {"phase": "parallel", "params": label, "card": card_label(device),
+            "world": 1, "backend": backend, "mesh": [1, 1], "bootstrap": boot,
+            "ringtp": ring, "ringtp_product_ms": product_ms,
+            "ringtp_product_share": product_ms / ring[0]["ms"],
+            "identify": {"nslots": nslots, "bitsize": bitsize, "n_templates": 2,
+                         "distances": dist_clear.tolist(), "b": b.tolist(),
+                         "want_b": want_b.tolist(), "seconds": ident_s,
+                         "launches": ident_launches}}
+
+
+def phase_ntt(device, sizes=(1024, 2048), seed=0) -> dict:
+    """The exact NTT (ops/ntt.py, plain torch on the card) at the ring
+    sizes: the product equal to ops/poly.negacyclic_mul_naive on int8-range
+    operands, and intt(ntt(x)) == x."""
+    import torch
+    from peba1_tpu_torch.ops import ntt, poly
+    rng = np.random.default_rng(seed + 11)
+    cases = []
+    for N in sizes:
+        a, b = (torch.as_tensor(rng.integers(-128, 128, (4, N)).astype(np.int32), device=device)
+                for _ in range(2))
+        x = torch.as_tensor(rng.integers(-(1 << 20), 1 << 20, (4, N)).astype(np.int32),
+                            device=device)
+        got = ntt.negacyclic_mul_exact(a, b)
+        want = poly.negacyclic_mul_naive(a, b)
+        back = ntt.intt_negacyclic(ntt.ntt_negacyclic(x))
+        sync(device)
+        case = {"N": N, "rows": 4, "mismatches": int((got != want).sum()),
+                "roundtrip_mismatches": int((back != x).sum()),
+                "ms": timed_ms(lambda: ntt.negacyclic_mul_exact(a, b), device),
+                "naive_ms": timed_ms(lambda: poly.negacyclic_mul_naive(a, b), device)}
+        check(case["mismatches"] == 0 and case["roundtrip_mismatches"] == 0,
+              f"ntt: {case}")
+        cases.append(case)
+    return {"phase": "ntt", "card": card_label(device), "cases": cases}
+
+
 def kernels_line(kernel: dict, main: dict) -> dict:
     """One entry per kernel: its first (largest) case's numbers, the largest
-    error over all its cases, and its launches on its main path."""
+    error over all its cases, and its launches on its main path (and on the
+    other paths that were read for it)."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in kernel["cases"] if c["kernel"] == name]
         first = cases[0]
+        (label, launches), *others = main[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": main[name][1],
-                     "launches_from": main[name][0],
+                     "replaces": replaces, "launches": launches,
+                     "launches_from": label,
+                     **({"other_paths": [{"from": lb, "launches": n} for lb, n in others]}
+                        if others else {}),
                      "max_abs_err": max(c["max_abs_err"] for c in cases),
                      "ms": first["ms"], "device_ms": first["device_ms"],
                      "plain_ms": first["plain_ms"],
@@ -824,17 +1016,18 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t_start = time.time()
-    main_path = {}      # kernel -> (phase that read its launches, count)
+    main_path = {}      # kernel -> [(phase that read its launches, count), ...]
 
     def path(label, launches, *kernels):
         for k in kernels:
-            main_path[k] = (label, launches[k])
+            main_path.setdefault(k, []).append((label, launches[k]))
 
     try:
         emit(phase_device())
         emit(phase_build())
         kernel = phase_kernel(device)
         emit(kernel)
+        emit(phase_ntt(device))
 
         keyset, gate = phase_gate("peba1_128_t2_gen", 8192, 3, device)
         emit(gate)
@@ -844,6 +1037,12 @@ def main() -> int:
         path("auth peba1_128_t2_gen", auth["launches"], "cmux_step_gen")
         emit(phase_bench(keyset, device, "peba1_128_t2_gen"))
         emit(phase_matches(keyset, "argmin", 2, 128, 8, device, "peba1_128_t2_gen"))
+        par = phase_parallel(keyset, 8192, 184, 128, 8, device, "peba1_128_t2_gen")
+        emit(par)
+        path("parallel sharded_bootstrap peba1_128_t2_gen", par["bootstrap"]["launches"],
+             "cmux_step_gen")
+        path("parallel sharded_identify peba1_128_t2_gen", par["identify"]["launches"],
+             "cmux_step_gen")
         del keyset
         free_device_memory()
 
@@ -900,11 +1099,12 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     emit({"phase": "done", "seconds": time.time() - t_start})
-    for name, (label, n) in main_path.items():
-        if n <= 0:
-            print(f"chip_smoke: FAILED: {name} launched {n} times in {label}",
-                  file=sys.stderr)
-            return 1
+    for name, paths in main_path.items():
+        for label, n in paths:
+            if n <= 0:
+                print(f"chip_smoke: FAILED: {name} launched {n} times in {label}",
+                      file=sys.stderr)
+                return 1
     emit(kernels_line(kernel, main_path))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,24 @@
 
 Counterpart of the parts of ``peba1_tpu/ops/poly.py`` that the gate
 bootstrap reads, with the key's Toeplitz, full-weight, A-matrix and conv
-forms.  Every function gives the JAX function's exact result mod 2^32.
+forms, and the ring-TP column slices (`negacyclic_toeplitz_cols`,
+`extprod_toeplitz_cols_i8`).  Every function gives the JAX function's exact
+result mod 2^32.
 
 Integer products: ``torch.matmul`` of two int8 tensors returns int8 and
 wraps, and CUDA has no integer matmul.  The plain products here therefore run
 in float64, which is exact while every partial sum stays below 2^53:
-  * `extprod_toeplitz_i8`, `extprod_amat_i8`, `negacyclic_conv_i8`:
-    (k+1)*l*N * 128 * 128 < 2^31 (asserted by TfheParams);
+  * `extprod_toeplitz_i8`, `extprod_toeplitz_cols_i8`, `extprod_amat_i8`,
+    `negacyclic_conv_i8`: (k+1)*l*N * 128 * 128 < 2^31 (asserted by
+    TfheParams);
   * `key_negacyclic_mul`: k*N * 2^31 <= 2^42 for every preset;
   * `dot_key_i32`: n * 2^31 < 2^42.
 On the card the external product of every preset is a hand-written kernel
 in ``ops/cuda_kernels.py``, except at the presets whose JAX path left it to
 XLA (``peba1_128_fast``, ``peba1_128``, ``ring_2048``): there it is
 `extprod_toeplitz_i8` in float64, as the JAX package's is a plain XLA dot.
+So is `extprod_toeplitz_cols_i8` on every device (ring-TP's product, a
+plain dot in the JAX package too).
 """
 
 from __future__ import annotations
@@ -112,6 +117,12 @@ def recombine_plan_i32(cols: torch.Tensor, plan: "tuple[int, ...]") -> torch.Ten
     return wrap_i32(out.index_add_(1, group, shifted))
 
 
+def doubled_neg(q: torch.Tensor) -> torch.Tensor:
+    """vv = cat(-q, q) along the last axis: the generator vector from which
+    every negacyclic-Toeplitz row is a contiguous window (row t = vv[N-t:2N-t])."""
+    return torch.cat([-q, q], dim=-1)
+
+
 def negacyclic_toeplitz(vv: torch.Tensor) -> torch.Tensor:
     """The negacyclic matrix W[.., t, j] = vv[.., N - t + j] from the doubled
     generator vv (..., 2N) -> (..., N, N): row t is the window starting at
@@ -163,6 +174,43 @@ def extprod_toeplitz_i8(digits: torch.Tensor, vv_limbs: torch.Tensor,
     W = W.movedim(2, 1).reshape(G * N, C * N)
     out = exact_matmul(digits.flip(-1).reshape(B, G * N), W).to(torch.int32)
     return recombine_plan_i32(out.reshape(B, C, N), plan)
+
+
+def negacyclic_toeplitz_cols(vv: torch.Tensor, j0: int, nj: int) -> torch.Tensor:
+    """Columns [j0, j0+nj) of `negacyclic_toeplitz`: W[.., t, dj] =
+    vv[.., N - t + j0 + dj], (..., 2N) -> (..., N, nj).
+
+    The ring-dimension tensor-parallel building block: a tp rank assembles
+    only its slice of each step's weights from the replicated generator.
+    j0 is a Python int (rank * nj); row t is the window of vv starting at
+    N - t + j0.  Requires 0 <= j0 <= N - nj.
+    """
+    N = vv.shape[-1] // 2
+    if not 0 <= j0 <= N - nj:
+        raise ValueError(f"columns [{j0}, {j0 + nj}) are not within N={N}")
+    return vv.unfold(-1, nj, 1)[..., j0 + 1:j0 + N + 1, :].flip(-2)
+
+
+def extprod_toeplitz_cols_i8(digits: torch.Tensor, vv_limbs: torch.Tensor, limbs,
+                             j0: int, nj: int) -> torch.Tensor:
+    """Columns [j0, j0+nj) of `extprod_toeplitz_i8`, bit for bit.
+
+    digits: (B, G, N) int8; vv_limbs: (G, C, 2N) int8.  Returns (B, O, nj)
+    int32: each output coefficient is an independent dot against the digit
+    rows, so tp ranks that compute their slices and gather them reproduce
+    the full product exactly.
+    """
+    B, G, N = digits.shape
+    C = vv_limbs.shape[1]
+    if not 0 <= j0 <= N - nj:
+        raise ValueError(f"columns [{j0}, {j0 + nj}) are not within N={N}")
+    plan = limbs if isinstance(limbs, tuple) else as_limb_plan(limbs, C // limbs)
+    # With the digits reversed along t (as in `extprod_toeplitz_i8`), row t'
+    # of the slice is the forward window vv[1 + j0 + t' :], a view of vv.
+    W = vv_limbs.unfold(-1, nj, 1)[..., j0 + 1:j0 + N + 1, :]   # (G, C, N_t', nj)
+    W = W.movedim(2, 1).reshape(G * N, C * nj)
+    out = exact_matmul(digits.flip(-1).reshape(B, G * N), W).to(torch.int32)
+    return recombine_plan_i32(out.reshape(B, C, nj), plan)
 
 
 def prepare_toeplitz_rhs(q: torch.Tensor, limbs) -> torch.Tensor:

@@ -10,7 +10,8 @@ setup(
     name="peba1_tpu",
     version="0.1.0",
     packages=["peba1_tpu", "peba1_tpu_torch", "peba1_tpu_torch.io",
-              "peba1_tpu_torch.ops", "peba1_tpu_torch.utils"],
+              "peba1_tpu_torch.ops", "peba1_tpu_torch.parallel",
+              "peba1_tpu_torch.utils"],
     package_data={"peba1_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(

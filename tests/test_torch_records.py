@@ -85,3 +85,50 @@ def test_matches_record():
         assert r["metric"] == f"encrypted_{config}_matches_per_s"
         assert r["items"] == 64 and r["nslots"] == 128 and r["bitsize"] == 8
         assert r["correct_frac"] == 1.0 and r["peak_memory_bytes"] > 0
+
+
+def test_sweep_1024_record():
+    """The 1,024-template sweep at full width, in two calls (16 chunks, then
+    the resume), finalized on the CPU: every decision right."""
+    rec = load("H100_SWEEP_1024.json")
+    first, run, final = rec["interrupted"], rec["resumed"], rec["finalize"]
+    assert first["status"] == "interrupted" and first["chunks_done"] == 16
+    for r in (first, run):
+        on_the_card(r)
+        assert r["n_templates"] == 1024 and r["nslots"] == 128 and r["bitsize"] == 8
+        assert r["chunk"] == 32 and r["params"] == "peba1_128_t2_gen"
+    assert run["status"] == "complete" and run["resumed_from_disk"] == 16
+    assert run["computed_this_run"] == 16 and run["chunks_done"] == 32
+    assert run["decisions_verified"] == 1024 and run["correct_frac"] == 1.0
+    assert final["finalize_mode"] and final["finalize_device"] == "cpu"
+    assert final["status"] == "complete" and final["decisions_verified"] == 1024
+    assert final["correct_frac"] == 1.0 and final["sk_device"] == "cpu"
+
+
+def test_scaling_record():
+    """bench_scaling at size 1 on the card (bootstrap and identify at
+    peba1_128_t2_gen, every result decrypted right), the comm model on the
+    port's defaults, and the smoke's ring-TP share those defaults read."""
+    rec = load("H100_SCALING.json")
+    for mode in ("bootstrap", "identify"):
+        r = rec[mode]
+        on_the_card(r)
+        assert r["metric"] == f"weak_scaling_efficiency_{mode}"
+        assert r["params"] == "peba1_128_t2_gen" and r["backend"] == "nccl"
+        assert set(r["times_s"]) == {"1"} and r["efficiency"] == {"1": 1.0}
+        assert not r["virtual_cpu_mesh"] and r["times_s"]["1"] > 0
+    assert rec["bootstrap"]["verified"]["1"] == 8192 * rec["bootstrap"]["reps"]
+    ident = rec["identify"]
+    assert ident["nslots"] == 128 and ident["bitsize"] == 8
+    assert ident["verified"]["1"] == ident["per_device_templates"] * ident["reps"]
+    share = rec["ringtp_share"]
+    assert share["card"] == "NVIDIA H100 80GB HBM3, 700.00 W" and share["backend"] == "nccl"
+    assert share["bootstrap"]["mismatches"] == 0 and share["bootstrap"]["launches"][
+        "cmux_step_gen"] > 0
+    assert [r["mismatches"] for r in share["ringtp"]] == [0, 0]
+    assert 0 < share["ringtp_product_share"] < 1
+    assert share["identify"]["b"] == share["identify"]["want_b"]
+    comm = rec["comm"]
+    assert comm["ringtp_gemm_frac"] == share["ringtp_product_share"]
+    assert "H100_BENCH.json" in comm["batch_seconds_source"]
+    assert "H100_SWEEP.json" in comm["template_seconds_source"]
