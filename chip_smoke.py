@@ -58,7 +58,14 @@ phase printing one JSON line:
      sharded_identify at full width on two templates, one a near match;
      after phase 3, the exact NTT (ops/ntt.py) on the card at N=1024 and
      2048 against the naive product, and its round trip;
- 10. the kernels line, then {"ok": true, "device": {...}} as the last line.
+ 10. the multi-rank dry run (python -m peba1_tpu_torch.dryrun, the
+     counterpart of __graft_entry__.dryrun_multichip), in process, its ranks
+     sharing the card over gloo: a world of 2 at toy (mesh 1x2, ring-TP
+     over tp=2) and a world of 4 at peba1_128_t2_gen (mesh 2x2), every
+     check passing (bootstrap bits, ring-TP with 1 and 2 blocks, identify
+     verdicts, argmin index and distance), every rank of the second
+     launching cmux_step_gen in sharded_bootstrap and gspmd_identify;
+ 11. the kernels line, then {"ok": true, "device": {...}} as the last line.
 Every path's launch counts are set to 0 just before it runs and read just
 after.  Any failure exits non-zero before the last line.  With no CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -129,17 +136,17 @@ STEP_KERNELS = ("cmux_step_gen", "blind_rotate_gen_full", "cmux_step", "fused_bl
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
     "cmux_step_gen": ("peba1_tpu_torch/csrc/cmux_step_gen.cu",
-                      "peba1_tpu/ops/pallas_kernels.py:466"),
+                      "peba1_tpu/ops/pallas_kernels.py:467"),
     "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/blind_rotate_gen_full.cu",
-                              "peba1_tpu/ops/pallas_kernels.py:606"),
+                              "peba1_tpu/ops/pallas_kernels.py:607"),
     "rotate_decompose": ("peba1_tpu_torch/csrc/rotate_decompose.cu",
-                         "peba1_tpu/ops/pallas_kernels.py:659"),
+                         "peba1_tpu/ops/pallas_kernels.py:660"),
     "cmux_step": ("peba1_tpu_torch/csrc/cmux_step.cu",
-                  "peba1_tpu/ops/pallas_kernels.py:341"),
+                  "peba1_tpu/ops/pallas_kernels.py:342"),
     "extprod_recombine": ("peba1_tpu_torch/csrc/cmux_step.cu",
-                          "peba1_tpu/ops/pallas_kernels.py:265"),
+                          "peba1_tpu/ops/pallas_kernels.py:266"),
     "fused_blind_rotate": ("peba1_tpu_torch/csrc/fused_blind_rotate.cu",
-                           "peba1_tpu/ops/pallas_kernels.py:167"),
+                           "peba1_tpu/ops/pallas_kernels.py:168"),
 }
 # A kernel with no single PyTorch call that computes what it computes.
 NO_LIBRARY_CALL = {"rotate_decompose": "none: no single PyTorch call computes "
@@ -851,12 +858,13 @@ def phase_parallel(keyset, B: int, rows: int, nslots: int, bitsize: int, device,
     kernel = bs.selected_kernel(p)
     rng = np.random.default_rng(seed + 9)
     gen = torch.Generator(device=device).manual_seed(seed + 10)
-    pmesh.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=device)
+    rank_device = pmesh.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                                         device=device)
     try:
         backend = dist.get_backend()
         check(backend == ("nccl" if torch_is_cuda(device) else "gloo"),
               f"parallel: backend {backend} on {device}")
-        mesh = pmesh.make_mesh(1, 1)
+        mesh = pmesh.make_mesh(1, 1, device=rank_device)
 
         bits = rng.integers(0, 2, B)
         ct = gates.encrypt_bits(gen, sk, bits)
@@ -946,6 +954,31 @@ def phase_parallel(keyset, B: int, rows: int, nslots: int, bitsize: int, device,
                          "launches": ident_launches}}
 
 
+def phase_dryrun(world: int, params: str, device) -> dict:
+    """The multi-rank dry run (python -m peba1_tpu_torch.dryrun) in process:
+    `world` ranks sharing the card over gloo (gloo CPU ranks in a rehearsal
+    on the CPU), every check of JAX's dry run passing, and on the card
+    every rank launching the preset's kernel, if it has one, wherever a
+    bootstrap runs through it."""
+    from peba1_tpu_torch import dryrun
+    from peba1_tpu_torch.ops.bootstrap import selected_kernel
+    from peba1_tpu_torch.params import PRESETS
+    argv = ["--world", str(world), "--params", params]
+    argv += ["--share-card"] if torch_is_cuda(device) else ["--device", "cpu"]
+    rec = _quiet(dryrun.main, argv)
+    checks = ["sharded_bootstrap", "ringtp_k1", "ringtp_k2", "gspmd_identify",
+              "gspmd_identify_argmin"]
+    check(rec["checks"] == checks and len(rec["launches"]) == world,
+          f"dryrun world {world}: {rec}")
+    kernel = selected_kernel(PRESETS[params])
+    if torch_is_cuda(device) and kernel is not None:
+        for name in ("sharded_bootstrap", "gspmd_identify", "gspmd_identify_argmin"):
+            per_rank = [r[name].get(kernel, 0) for r in rec["launches"]]
+            check(min(per_rank) > 0, f"dryrun world {world}: {name} launched {kernel} "
+                                     f"{per_rank} times on its ranks")
+    return {"phase": "dryrun", "card": card_label(device), **rec}
+
+
 def phase_ntt(device, sizes=(1024, 2048), seed=0) -> dict:
     """The exact NTT (ops/ntt.py, plain torch on the card) at the ring
     sizes: the product equal to ops/poly.negacyclic_mul_naive on int8-range
@@ -981,12 +1014,11 @@ def kernels_line(kernel: dict, main: dict) -> dict:
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in kernel["cases"] if c["kernel"] == name]
         first = cases[0]
-        (label, launches), *others = main[name]
+        first_path, *others = main[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches,
-                     "launches_from": label,
-                     **({"other_paths": [{"from": lb, "launches": n} for lb, n in others]}
-                        if others else {}),
+                     "replaces": replaces, "launches": first_path["launches"],
+                     "launches_from": first_path["from"],
+                     **({"other_paths": others} if others else {}),
                      "max_abs_err": max(c["max_abs_err"] for c in cases),
                      "ms": first["ms"], "device_ms": first["device_ms"],
                      "plain_ms": first["plain_ms"],
@@ -1016,11 +1048,12 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     t_start = time.time()
-    main_path = {}      # kernel -> [(phase that read its launches, count), ...]
+    main_path = {}      # kernel -> [{"from": phase that read its launches, "launches": n}]
 
-    def path(label, launches, *kernels):
+    def path(label, launches, *kernels, **extra):
         for k in kernels:
-            main_path.setdefault(k, []).append((label, launches[k]))
+            main_path.setdefault(k, []).append({"from": label, "launches": launches[k],
+                                                **extra})
 
     try:
         emit(phase_device())
@@ -1045,6 +1078,14 @@ def main() -> int:
              "cmux_step_gen")
         del keyset
         free_device_memory()
+
+        emit(phase_dryrun(2, "toy", device))
+        dry = phase_dryrun(4, "peba1_128_t2_gen", device)
+        emit(dry)
+        for name in ("sharded_bootstrap", "gspmd_identify"):
+            per_rank = [r[name].get("cmux_step_gen", 0) for r in dry["launches"]]
+            path(f"dryrun world 4 {name} peba1_128_t2_gen, all ranks",
+                 {"cmux_step_gen": sum(per_rank)}, "cmux_step_gen", per_rank=per_rank)
 
         keyset, gate = phase_gate("peba1_128_fast_genf", 8192, 3, device)
         emit(gate)
@@ -1100,10 +1141,10 @@ def main() -> int:
         return 1
     emit({"phase": "done", "seconds": time.time() - t_start})
     for name, paths in main_path.items():
-        for label, n in paths:
-            if n <= 0:
-                print(f"chip_smoke: FAILED: {name} launched {n} times in {label}",
-                      file=sys.stderr)
+        for entry in paths:
+            if entry["launches"] <= 0:
+                print(f"chip_smoke: FAILED: {name} launched {entry['launches']} times in "
+                      f"{entry['from']}", file=sys.stderr)
                 return 1
     emit(kernels_line(kernel, main_path))
     emit({"ok": True, "device": {"platform": "gpu",

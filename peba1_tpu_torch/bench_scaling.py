@@ -202,7 +202,7 @@ def _rank_main(local_rank: int, world: int, args: dict, store: str, out: str) ->
     if a.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     device = pmesh.init_distributed(f"file://{store}", world, local_rank, device=a.device)
-    mesh = pmesh.make_mesh(world // a.n_tp, a.n_tp)
+    mesh = pmesh.make_mesh(world // a.n_tp, a.n_tp, device=device)
     n = world // a.n_tp
     p = PRESETS[a.params]
     sk, ck = keys.keygen(torch.Generator(device=device).manual_seed(0), p, device)

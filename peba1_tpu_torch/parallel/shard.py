@@ -8,9 +8,10 @@ Counterpart of ``peba1_tpu/parallel/shard.py``:
     LWE coefficients x limbs), joined by an all_gather;
   * ring-TP splits the external product over the ring's output
     coefficients, one all_gather a step;
-  * 1:N identification shards the template database over dp; the argmin
-    forms play a local tournament per shard, gather the dp finalists and
-    finish the tournament on every rank.
+  * 1:N identification shards the template database over dp; the
+    sharded argmin forms play a local tournament per shard, gather the dp
+    finalists and finish the tournament on every rank, and the GSPMD form
+    gathers the distances and plays the whole tournament on every rank.
 
 Calling convention.  The JAX functions take global arrays and return global
 ones, and XLA partitions the program.  Here every rank calls the function
@@ -255,7 +256,8 @@ def shard_lwe(mesh, ct: lwe.Lwe, spec) -> lwe.Lwe:
 
 
 def replicate_lwe(mesh, ct: lwe.Lwe) -> lwe.Lwe:
-    """ct, whole, on this rank's device."""
+    """ct, whole, on this rank's device: the mesh's device type, and on the
+    card the device `init_distributed` made current."""
     device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
               else torch.device(mesh.device_type))
     return lwe.Lwe(ct.a.to(device), ct.b.to(device))
@@ -276,11 +278,14 @@ def gspmd_identify(mesh, server, probe_ct: lwe.Lwe, templates_ct: lwe.Lwe,
 
 def gspmd_identify_argmin(mesh, server, probe_ct: lwe.Lwe, templates_ct: lwe.Lwe):
     """Tournament argmin in the GSPMD form (see `gspmd_identify`): the
-    distances of this rank's templates through the server's circuit, a
-    local tournament over global index words, and the cross-shard rounds by
-    `_argmin_local_then_global`'s finalist gather, which is what XLA
-    inserts for the tournament's cross-shard rounds.  Returns
-    (enc_min_dist, enc_idx), equal to ``Server.identify_argmin``."""
+    distances of this rank's templates through the server's circuit,
+    gathered over dp (tiled, in rank order) into the whole (N, max_bitsize)
+    axis, and ``circuits.argmin_tree`` over all N templates with the global
+    index words on every rank.  That is the program XLA's partitioning
+    computes for JAX's form, which runs the normal
+    ``Server.identify_argmin`` on dp-placed templates, so the result is
+    bit-equal to ``Server.identify_argmin`` at every N that dp divides.
+    Returns (enc_min_dist, enc_idx)."""
     n_templates = templates_ct.shape[0]
     _check_dp_templates(n_templates, mesh)
     be, proto = server.be, server.proto
@@ -288,8 +293,7 @@ def gspmd_identify_argmin(mesh, server, probe_ct: lwe.Lwe, templates_ct: lwe.Lwe
     pr = replicate_lwe(mesh, probe_ct)
     dists = cc.euclidean(be, gates.expand(pr, (t.shape[0],) + pr.shape), t,
                          proto.bitsize, proto.max_bitsize)
-    idx = shard_lwe(mesh, _index_words(be, n_templates), ("dp",))
-    return _argmin_local_then_global(be, dists, idx, mesh)
+    return cc.argmin_tree(be, _gather_lwe(dists, mesh, "dp"), _index_words(be, n_templates))
 
 
 def _index_words(be, n_templates: int) -> lwe.Lwe:

@@ -358,3 +358,17 @@ def test_bench_on_the_card(cuda_device):
     assert rec["batch_correct_frac"] == 1.0 and rec["value"] > 0
     assert rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit"]
     assert ck.launches["cmux_step"] - before == 6        # 1 + 2 warm-up, 1 + 2 timed
+
+
+@pytest.mark.cuda
+def test_dryrun_shares_the_card(cuda_device):
+    """The multi-rank dry run with two gloo ranks on one card at toy_t2:
+    every check passes and each rank launches kernel 4 (cmux_step)."""
+    from peba1_tpu_torch import dryrun
+    rec = dryrun.main(["--world", "2", "--share-card", "--params", "toy_t2"])
+    assert rec["backend"] == "gloo" and rec["mesh"] == [1, 2]
+    assert rec["checks"] == ["sharded_bootstrap", "ringtp_k1", "ringtp_k2", "gspmd_identify",
+                             "gspmd_identify_argmin"]
+    for rank in rec["launches"]:
+        for check in ("sharded_bootstrap", "gspmd_identify", "gspmd_identify_argmin"):
+            assert rank[check].get("cmux_step", 0) > 0, rec["launches"]

@@ -29,7 +29,7 @@ def _proc_main() -> None:
     assert pmesh.init_distributed(device="cpu") == device  # a no-op the second time
     assert dist.get_world_size() == 2 and dist.get_backend() == "gloo"
 
-    m = pmesh.make_global_mesh(n_tp=1)
+    m = pmesh.make_global_mesh(n_tp=1, device=device)
     assert pmesh.axis_size(m, "dp") == 2 and m.get_local_rank("dp") == rank
     x = torch.tensor([rank + 1], dtype=torch.int32)
     s = x.clone()
@@ -39,13 +39,13 @@ def _proc_main() -> None:
     dist.all_gather(got, x, group=m.get_group("dp"))
     assert [int(g) for g in got] == [1, 2], got
 
-    m2 = pmesh.make_global_mesh(n_tp=2)                     # both ranks on one node
+    m2 = pmesh.make_global_mesh(n_tp=2, device=device)                     # both ranks on one node
     assert (pmesh.axis_size(m2, "dp"), pmesh.axis_size(m2, "tp")) == (1, 2)
     got = [torch.empty_like(x) for _ in range(2)]
     dist.all_gather(got, x * 10, group=m2.get_group("tp"))
     assert [int(g) for g in got] == [10, 20], got
     try:
-        pmesh.make_global_mesh(n_tp=4)
+        pmesh.make_global_mesh(n_tp=4, device=device)
         raise AssertionError("n_tp=4 over 2 ranks a node did not raise")
     except ValueError as e:
         assert "must divide the ranks per node 2" in str(e), e

@@ -37,6 +37,7 @@ CASES = {
     "tree_sum_2x2": 1, "tree_sum_1x4": 1,
     "argmin_2x2": 2, "argmin_4x1": 2,
     "gspmd_identify_2x2": 1, "gspmd_identify_argmin_2x2": 2,
+    "gspmd_identify_argmin_6_2x2": 2, "gspmd_identify_argmin_12_4x1": 2,
     "identify_4x1": 1, "identify_2x2": 1, "identify_argmin_4x1": 2,
     "euclidean_2x2": 1,
 }
@@ -61,7 +62,7 @@ def _rank_main(rank: int, data: str) -> None:
     from peba1_tpu_torch.params import TOY, ProtocolParams
     from peba1_tpu_torch.protocol import Server
 
-    pmesh.init_distributed(f"file://{data}/store", WORLD, rank, device="cpu")
+    device = pmesh.init_distributed(f"file://{data}/store", WORLD, rank, device="cpu")
     x = np.load(os.path.join(data, "inputs.npz"))
     ck = keys.cloud_key_from_numpy(TOY, x["bk_tp"], x["ks"], "cpu")
     server = Server(ck, ProtocolParams(**PROTO))
@@ -70,8 +71,9 @@ def _rank_main(rank: int, data: str) -> None:
     def ct(name):
         return lwe.Lwe(torch.as_tensor(x[name + ".a"]), torch.as_tensor(x[name + ".b"]))
 
-    m = {s: pmesh.make_mesh(*map(int, s.split("x"))) for s in ("2x2", "1x4", "4x1")}
+    m = {s: pmesh.make_mesh(*map(int, s.split("x")), device=device) for s in ("2x2", "1x4", "4x1")}
     probe, tmpl, bound = ct("probe"), ct("tmpl"), ct("bound")
+    tmpl12 = lwe.Lwe(torch.cat([tmpl.a, tmpl.a[:4]]), torch.cat([tmpl.b, tmpl.b[:4]]))
     runs = {
         "bootstrap_2x2": lambda: pshard.sharded_bootstrap(m["2x2"], ck, ct("boot"), mu),
         "bootstrap_dp_4x1": lambda: pshard.sharded_bootstrap(m["4x1"], ck, ct("boot_dp"), mu),
@@ -88,6 +90,12 @@ def _rank_main(rank: int, data: str) -> None:
                                                             bound),
         "gspmd_identify_argmin_2x2": lambda: pshard.gspmd_identify_argmin(
             m["2x2"], server, probe, tmpl),
+        # Shards of 3 templates: argmin_tree's byes fall elsewhere than in a
+        # tournament per shard, so only the whole-axis tree is bit-equal.
+        "gspmd_identify_argmin_6_2x2": lambda: pshard.gspmd_identify_argmin(
+            m["2x2"], server, probe, tmpl[:6]),
+        "gspmd_identify_argmin_12_4x1": lambda: pshard.gspmd_identify_argmin(
+            m["4x1"], server, probe, tmpl12),
         "identify_4x1": lambda: pshard.sharded_identify(m["4x1"], ck, probe, tmpl, bound,
                                                         BITSIZE),
         "identify_2x2": lambda: pshard.sharded_identify(m["2x2"], ck, probe, tmpl, bound,
@@ -119,7 +127,7 @@ def _rank_main(rank: int, data: str) -> None:
         "euclidean_6_slots_tp4": lambda: pshard.sharded_euclidean(
             m["1x4"], ck, six, lwe.Lwe(six.a.expand(4, -1, -1, -1), six.b.expand(4, -1, -1)),
             BITSIZE, 3 * BITSIZE),
-        "mesh_3x1": lambda: pmesh.make_mesh(3, 1),
+        "mesh_3x1": lambda: pmesh.make_mesh(3, 1, device=device),
     }
     for name, run in raising.items():
         try:
@@ -172,10 +180,13 @@ def _jax_inputs(sk, ck):
         inputs[name + ".a"], inputs[name + ".b"] = np.asarray(c.a), np.asarray(c.b)
 
     d = ((tmpl - probe) ** 2).sum(1)
+    d12 = np.concatenate([d, d[:4]])
     plain = {"bootstrap_2x2": np.arange(16) % 2, "ringtp_1x4_k1": np.arange(8) % 2,
              "ringtp_1x4_k2": (np.arange(8) + 1) % 2, "tree_sum_2x2": words.sum(1) % 16,
              "argmin_2x2": int(np.argmin(vals)), "identify_4x1": (d > 0).astype(int),
-             "identify_argmin_4x1": int(np.argmin(d)), "euclidean_2x2": d}
+             "identify_argmin_4x1": int(np.argmin(d)), "euclidean_2x2": d,
+             "gspmd_identify_argmin_6_2x2": int(np.argmin(d[:6])),
+             "gspmd_identify_argmin_12_4x1": int(np.argmin(d12))}
     return inputs, cts, plain
 
 
@@ -211,6 +222,10 @@ def _jax_wants(ck, cts):
         server.identify(probe, tmpl, cts["bound"]))
     put(["gspmd_identify_argmin_2x2", "identify_argmin_4x1"],
         *server.identify_argmin(probe, tmpl))
+    put(["gspmd_identify_argmin_6_2x2"], *server.identify_argmin(probe, tmpl[:6]))
+    tmpl12 = type(tmpl)(jnp.concatenate([tmpl.a, tmpl.a[:4]]),
+                        jnp.concatenate([tmpl.b, tmpl.b[:4]]))
+    put(["gspmd_identify_argmin_12_4x1"], *server.identify_argmin(probe, tmpl12))
     probe_b = type(probe)(jnp.broadcast_to(probe.a, (8,) + probe.a.shape),
                           jnp.broadcast_to(probe.b, (8,) + probe.b.shape))
     put(["euclidean_2x2"], jcc.euclidean(be, probe_b, tmpl, BITSIZE, 3 * BITSIZE))
@@ -254,7 +269,9 @@ def test_sharded_equals_jax_single_device(world, case):
 
 @pytest.mark.parametrize("case", ["bootstrap_2x2", "ringtp_1x4_k1", "ringtp_1x4_k2",
                                   "tree_sum_2x2", "argmin_2x2", "identify_4x1",
-                                  "identify_argmin_4x1", "euclidean_2x2"])
+                                  "identify_argmin_4x1", "euclidean_2x2",
+                                  "gspmd_identify_argmin_6_2x2",
+                                  "gspmd_identify_argmin_12_4x1"])
 def test_sharded_decrypts_to_the_plaintext(world, case):
     import jax.numpy as jnp
 
@@ -263,7 +280,7 @@ def test_sharded_decrypts_to_the_plaintext(world, case):
     from peba1_tpu.utils.bits import bits_to_int
 
     _, plain, ranks, sk = world
-    i = 1 if case in ("argmin_2x2", "identify_argmin_4x1") else 0
+    i = 1 if "argmin" in case else 0
     ct = jlwe.Lwe(jnp.asarray(ranks[0][f"{case}.{i}.a"]), jnp.asarray(ranks[0][f"{case}.{i}.b"]))
     bits = np.asarray(jgates.decrypt_bits(ct, sk))
     got = bits if case.startswith(("bootstrap", "ringtp")) else bits_to_int(bits)

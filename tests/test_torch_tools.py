@@ -160,3 +160,13 @@ def test_the_port_imports_neither_jax_nor_the_reference():
     assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("kernel", ["cmux_step_gen", "blind_rotate_gen_full", "rotate_decompose",
+                                    "cmux_step", "extprod_recombine", "fused_blind_rotate"])
+def test_the_smoke_cites_the_def_line_of_each_tpu_kernel(kernel):
+    """The kernels line's `replaces` names the line of the Pallas kernel's def."""
+    from chip_smoke import KERNELS
+    path, line = KERNELS[kernel][1].rsplit(":", 1)
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith(f"def {kernel}("), text
