@@ -17,6 +17,8 @@ import torch
 from . import gates, lwe
 from .keys import CloudKey
 from .ops import bootstrap as bs
+from .utils.device import from_host
+from .utils.logging import span
 
 # gate name -> (wa, wb, offset) for the lincomb bootstrap (cipher),
 # and the boolean function (clear).
@@ -82,19 +84,21 @@ class CipherBackend:
         All gates execute as ONE bootstrap: inputs are stacked along a new
         leading axis and each gate's (wa, wb, offset) broadcasts over it.
         """
-        shape = tuple(torch.broadcast_shapes(
-            *[x.shape for _, a, b in ops for x in (a, b)]))
-        L = len(ops)
-        w = torch.tensor([_GATE_LIN[name] for name, _, _ in ops],
-                         dtype=torch.int32, device=self.ck.device)
-        w = w.reshape((L, 3) + (1,) * len(shape))
-        wa, wb, off = w[:, 0], w[:, 1], w[:, 2]
-        A = lwe.stack([gates.expand(a, shape) for _, a, _ in ops])
-        B = lwe.stack([gates.expand(b, shape) for _, _, b in ops])
-        pre = lwe.Lwe(A.a * wa[..., None] + B.a * wb[..., None],
-                      A.b * wa + B.b * wb + off)
+        with span("prepare"):
+            shape = tuple(torch.broadcast_shapes(
+                *[x.shape for _, a, b in ops for x in (a, b)]))
+            L = len(ops)
+            w = from_host([_GATE_LIN[name] for name, _, _ in ops], torch.int32,
+                          self.ck.device)
+            w = w.reshape((L, 3) + (1,) * len(shape))
+            wa, wb, off = w[:, 0], w[:, 1], w[:, 2]
+            A = lwe.stack([gates.expand(a, shape) for _, a, _ in ops])
+            B = lwe.stack([gates.expand(b, shape) for _, _, b in ops])
+            pre = lwe.Lwe(A.a * wa[..., None] + B.a * wb[..., None],
+                          A.b * wa + B.b * wb + off)
+            pre = gates.flatten(pre)
         self.launches += 1
-        out = bs.bootstrap(self.ck, gates.flatten(pre), gates.MU_1_8)
+        out = bs.bootstrap(self.ck, pre, gates.MU_1_8)
         res = gates.unflatten(out, (L,) + shape)
         return [res[i] for i in range(L)]
 

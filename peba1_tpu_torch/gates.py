@@ -21,6 +21,8 @@ from . import lwe
 from .keys import CloudKey
 from .ops import bootstrap as bs
 from .torus import modswitch_to_torus32
+from .utils.device import from_host
+from .utils.logging import span
 
 MU_1_8 = modswitch_to_torus32(1, 8)   # +1/8 torus32 == 2^29
 MU_1_4 = modswitch_to_torus32(1, 4)   # +1/4
@@ -52,13 +54,15 @@ def lincomb_bootstrap(ck: CloudKey, a: lwe.Lwe, b: lwe.Lwe, wa, wb, offset) -> l
     wa, wb: ints or int tensors broadcastable to the gate batch shape;
     offset: torus32 likewise.
     """
-    wa = torch.as_tensor(wa, dtype=torch.int32, device=ck.device)
-    wb = torch.as_tensor(wb, dtype=torch.int32, device=ck.device)
-    offset = torch.as_tensor(offset, dtype=torch.int32, device=ck.device)
-    shape = torch.broadcast_shapes(a.shape, b.shape, wa.shape, offset.shape)
-    pre = lwe.Lwe(a.a * wa[..., None] + b.a * wb[..., None],
-                  a.b * wa + b.b * wb + offset)
-    out = bs.bootstrap(ck, flatten(expand(pre, shape)), MU_1_8)
+    with span("prepare"):
+        wa = from_host(wa, torch.int32, ck.device)
+        wb = from_host(wb, torch.int32, ck.device)
+        offset = from_host(offset, torch.int32, ck.device)
+        shape = torch.broadcast_shapes(a.shape, b.shape, wa.shape, offset.shape)
+        pre = lwe.Lwe(a.a * wa[..., None] + b.a * wb[..., None],
+                      a.b * wa + b.b * wb + offset)
+        pre = flatten(expand(pre, shape))
+    out = bs.bootstrap(ck, pre, MU_1_8)
     return unflatten(out, shape)
 
 
@@ -89,18 +93,19 @@ def CONSTANT(ck: CloudKey, value, shape=()) -> lwe.Lwe:
 
     value: 0/1 (int, array or tensor broadcastable to `shape`).
     """
-    v = torch.as_tensor(value, dtype=torch.int32, device=ck.device).expand(tuple(shape))
+    v = from_host(value, torch.int32, ck.device).expand(tuple(shape))
     mu = torch.where(v != 0, MU_1_8, -MU_1_8).to(torch.int32)
     return lwe.trivial(mu, ck.params.n, shape, ck.device)
 
 
 def MUX(ck: CloudKey, a: lwe.Lwe, b: lwe.Lwe, c: lwe.Lwe) -> lwe.Lwe:
     """a ? b : c -- two bootstraps (no intermediate keyswitch) + one keyswitch."""
-    shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
-    a, b, c = (expand(x, shape) for x in (a, b, c))
-    pre1 = (a + b).add_const(-MU_1_8)       # ~ a AND b
-    pre2 = (c - a).add_const(-MU_1_8)       # ~ (not a) AND c
-    both = lwe.concatenate([flatten(pre1), flatten(pre2)])
+    with span("prepare"):
+        shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+        a, b, c = (expand(x, shape) for x in (a, b, c))
+        pre1 = (a + b).add_const(-MU_1_8)       # ~ a AND b
+        pre2 = (c - a).add_const(-MU_1_8)       # ~ (not a) AND c
+        both = lwe.concatenate([flatten(pre1), flatten(pre2)])
     a_ext, b_ext = bs.bootstrap_wo_ks(ck, both, MU_1_8)
     n = math.prod(shape)
     out = bs.keyswitch(ck, a_ext[:n] + a_ext[n:], b_ext[:n] + b_ext[n:] + MU_1_8)

@@ -22,6 +22,8 @@ import torch
 from .. import lwe, tlwe
 from ..params import TfheParams
 from ..torus import MASK32, as_u32
+from ..utils.device import from_host
+from ..utils.logging import span, spanned
 from . import cuda_kernels, poly, rotate
 
 
@@ -41,6 +43,7 @@ def selected_kernel(p: TfheParams) -> str | None:
     return None
 
 
+@spanned("rotation")
 def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.Tensor:
     """Batched blind rotation of the all-mu testvector.
 
@@ -99,12 +102,13 @@ def keyswitch_digits(p: TfheParams, a_ext: torch.Tensor) -> torch.Tensor:
     """
     B, kn = a_ext.shape
     u = (as_u32(a_ext) + (1 << (32 - (1 + p.ks_basebit * p.ks_t)))) & MASK32
-    shifts = torch.tensor([32 - (j + 1) * p.ks_basebit for j in range(p.ks_t)],
-                          dtype=torch.int64, device=a_ext.device)
+    shifts = from_host([32 - (j + 1) * p.ks_basebit for j in range(p.ks_t)],
+                       torch.int64, a_ext.device)
     digits = (u[..., None] >> shifts) & (p.ks_base - 1)   # (B, kN, t)
     return digits.reshape(B, kn * p.ks_t).to(torch.int8)
 
 
+@spanned("keyswitch")
 def keyswitch(ck, a_ext: torch.Tensor, b_ext: torch.Tensor) -> lwe.Lwe:
     """Batched key switch kN -> n as a digit-valued matmul.
 
@@ -125,9 +129,12 @@ def bootstrap_wo_ks(ck, ct: lwe.Lwe, mu: int) -> "tuple[torch.Tensor, torch.Tens
     is in (0, 1/2), -mu where it is in (-1/2, 0).
     """
     p = ck.params
-    bara = rotate.modswitch_2n(ct.a, p.N)
-    barb = rotate.modswitch_2n(ct.b, p.N)
-    return tlwe.sample_extract(blind_rotate(ck, bara, barb, mu))
+    with span("modswitch"):
+        bara = rotate.modswitch_2n(ct.a, p.N)
+        barb = rotate.modswitch_2n(ct.b, p.N)
+    acc = blind_rotate(ck, bara, barb, mu)
+    with span("extract"):
+        return tlwe.sample_extract(acc)
 
 
 def bootstrap(ck, ct: lwe.Lwe, mu: int) -> lwe.Lwe:

@@ -30,7 +30,8 @@ with ``nvcc`` for ``sm_90a`` at first use into its own shared library, all
 at once, under the package's ``build/`` directory (keyed by one hash of
 every source and the flags; git ignores it), and bound with ctypes.
 ``launches`` counts the CUDA kernel launches each wrapper makes: one per
-call for every wrapper.
+call for every wrapper.  Each wrapper call is the span
+``peba1.kernel.<wrapper>`` in a profiler's trace (``utils/logging``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from pathlib import Path
 import torch
 
 from ..params import TfheParams
+from ..utils.logging import spanned
 from . import decompose as dec
 from . import poly, rotate
 
@@ -253,6 +255,7 @@ def _check_rotation_shapes(kernel: str, p: TfheParams) -> None:
 
 # --- cmux_step_gen ---------------------------------------------------------
 
+@spanned("kernel.cmux_step_gen")
 def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
                   params: TfheParams) -> torch.Tensor:
     """S whole CMUX steps, updating the accumulator IN PLACE (returned).
@@ -300,6 +303,7 @@ def cmux_step_gen_plain(acc_flat: torch.Tensor, amt: torch.Tensor,
 
 # --- blind_rotate_gen_full -------------------------------------------------
 
+@spanned("kernel.blind_rotate_gen_full")
 def blind_rotate_gen_full(amt: torch.Tensor, vv: torch.Tensor, mu: int,
                           params: TfheParams) -> torch.Tensor:
     """The whole blind rotation; returns a new (B, (k+1)*N) int32 accumulator.
@@ -395,6 +399,7 @@ def rotdec_plan(B: int, params: TfheParams, sm_count: int) -> RotdecPlan:
     return RotdecPlan(B, blocks, S, row, drow, smem, args)
 
 
+@spanned("kernel.rotate_decompose")
 def rotate_decompose(acc_flat: torch.Tensor, amt: torch.Tensor,
                      params: TfheParams) -> torch.Tensor:
     """Fused rotate + difference + gadget decomposition.
@@ -444,6 +449,7 @@ def rotate_decompose_plain(acc_flat: torch.Tensor, amt: torch.Tensor,
 
 # --- extprod_recombine -----------------------------------------------------
 
+@spanned("kernel.extprod_recombine")
 def extprod_recombine(digits: torch.Tensor, w: torch.Tensor,
                       params: TfheParams) -> torch.Tensor:
     """External product with the limb recombination as the GEMM's epilogue.
@@ -485,6 +491,7 @@ def extprod_recombine_plain(digits: torch.Tensor, w: torch.Tensor,
 
 # --- cmux_step -------------------------------------------------------------
 
+@spanned("kernel.cmux_step")
 def cmux_step(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
               params: TfheParams) -> torch.Tensor:
     """S whole CMUX steps against precomputed weights, updating the
@@ -529,6 +536,7 @@ def cmux_step_plain(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
 
 # --- fused_blind_rotate ----------------------------------------------------
 
+@spanned("kernel.fused_blind_rotate")
 def fused_blind_rotate(amt: torch.Tensor, amat: torch.Tensor, mu: int,
                        params: TfheParams) -> torch.Tensor:
     """The whole blind rotation against the A-matrix; returns a new

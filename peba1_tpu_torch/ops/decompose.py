@@ -13,6 +13,7 @@ import torch
 
 from ..params import TfheParams
 from ..torus import MASK32, as_u32, wrap_i32
+from ..utils.device import from_host
 
 
 def gadget_offset(params: TfheParams) -> int:
@@ -30,8 +31,8 @@ def gadget_offset(params: TfheParams) -> int:
 def decompose(x: torch.Tensor, params: TfheParams) -> torch.Tensor:
     """Decompose torus32 (...,) -> digits (..., l) int8 in [-Bg/2, Bg/2)."""
     u = (as_u32(x) + gadget_offset(params)) & MASK32
-    shifts = torch.tensor([32 - p * params.bgbit for p in range(1, params.l + 1)],
-                          dtype=torch.int64, device=x.device)
+    shifts = from_host([32 - p * params.bgbit for p in range(1, params.l + 1)],
+                       torch.int64, x.device)
     d = (u[..., None] >> shifts) & (params.bg - 1)
     return (d - params.half_bg).to(torch.int8)
 

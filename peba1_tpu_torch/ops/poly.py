@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..torus import MASK32, wrap_i32
+from ..utils.device import from_host
 
 
 def exact_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -82,8 +83,8 @@ def split_limbs_i8(x: torch.Tensor, limbs: int = 4) -> torch.Tensor:
 
 def _limb_shifts(plan, device) -> torch.Tensor:
     """Shift of each (output, limb) column: 8*(4 - nl) + 8*m for limb m."""
-    return torch.tensor([8 * (4 - nl) + 8 * m for nl in plan for m in range(nl)],
-                        dtype=torch.int64, device=device)
+    return from_host([8 * (4 - nl) + 8 * m for nl in plan for m in range(nl)],
+                     torch.int64, device)
 
 
 def recombine_limbs_i32(conv: torch.Tensor, limbs: int) -> torch.Tensor:
@@ -110,8 +111,8 @@ def recombine_plan_i32(cols: torch.Tensor, plan: "tuple[int, ...]") -> torch.Ten
     o's plan[o] limbs contiguous, low limb first) -> (B, O, N).
     """
     B, _, N = cols.shape
-    group = torch.tensor([o for o, nl in enumerate(plan) for _ in range(nl)],
-                         device=cols.device)
+    group = from_host([o for o, nl in enumerate(plan) for _ in range(nl)], torch.int64,
+                      cols.device)
     shifted = cols.to(torch.int64) << _limb_shifts(plan, cols.device)[:, None]
     out = torch.zeros((B, len(plan), N), dtype=torch.int64, device=cols.device)
     return wrap_i32(out.index_add_(1, group, shifted))

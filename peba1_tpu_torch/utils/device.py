@@ -10,6 +10,8 @@ import subprocess
 
 import torch
 
+from .logging import span
+
 
 def require(name: str) -> torch.device:
     """torch.device(name), with the current card's index for "cuda";
@@ -22,6 +24,14 @@ def require(name: str) -> torch.device:
                          "(pass --device cpu to run the plain path)")
     return device if device.index is not None else torch.device(
         "cuda", torch.cuda.current_device())
+
+
+def from_host(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host values (Python numbers, a list, a numpy array) as a new tensor on
+    `device`.  To a card this is a copy from pageable memory, which waits
+    for the stream: the span ``peba1.sync_copy`` names it in a trace."""
+    with span("sync_copy"):
+        return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def sync(device) -> None:

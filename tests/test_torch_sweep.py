@@ -183,8 +183,6 @@ def test_event_log_jsonl(tmp_path):
     child = log.child(sub="c")
     child.log("inner")
     child.close()                         # a child does not close the file
-    log.count("gates", 5)
-    log.count("gates", 2)
     log.close()
     lines = [json.loads(line) for line in open(p)]
     assert lines[0]["event"] == "hello" and lines[0]["x"] == 1 and lines[0]["run"] == "t"
@@ -192,4 +190,3 @@ def test_event_log_jsonl(tmp_path):
     assert lines[1]["event"] == "timed" and lines[1]["seconds"] >= 0
     assert lines[1]["tag"] == "a" and lines[1]["items"] == 3
     assert lines[2]["event"] == "inner" and lines[2]["sub"] == "c" and lines[2]["run"] == "t"
-    assert log.counters["gates"] == 7
