@@ -93,6 +93,8 @@ def CONSTANT(ck: CloudKey, value, shape=()) -> lwe.Lwe:
 
     value: 0/1 (int, array or tensor broadcastable to `shape`).
     """
+    if isinstance(value, int):
+        return lwe.trivial(MU_1_8 if value else -MU_1_8, ck.params.n, shape, ck.device)
     v = from_host(value, torch.int32, ck.device).expand(tuple(shape))
     mu = torch.where(v != 0, MU_1_8, -MU_1_8).to(torch.int32)
     return lwe.trivial(mu, ck.params.n, shape, ck.device)

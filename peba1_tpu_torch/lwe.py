@@ -57,11 +57,15 @@ class Lwe:
 
 
 def trivial(mu, dim: int, shape, device) -> Lwe:
-    """Noiseless trivial ciphertext (a=0, b=mu) -- TFHE's bootsCONSTANT core."""
+    """Noiseless trivial ciphertext (a=0, b=mu) -- TFHE's bootsCONSTANT core.
+    mu: a Python int (filled on the device) or a tensor broadcastable to
+    `shape`."""
     shape = tuple(shape)
-    mu = torch.as_tensor(mu, dtype=torch.int32, device=device)
-    return Lwe(torch.zeros(shape + (dim,), dtype=torch.int32, device=device),
-               mu.expand(shape).clone())
+    if isinstance(mu, int):
+        b = torch.full(shape, mu, dtype=torch.int32, device=device)
+    else:
+        b = torch.as_tensor(mu, dtype=torch.int32, device=device).expand(shape).clone()
+    return Lwe(torch.zeros(shape + (dim,), dtype=torch.int32, device=device), b)
 
 
 def encrypt(gen: torch.Generator, sk: torch.Tensor, mu: torch.Tensor,

@@ -13,8 +13,10 @@ nothing and never synchronizes.  The spans a bootstrap call opens:
   * ``peba1.prepare``, ``peba1.modswitch``, ``peba1.rotation``,
     ``peba1.extract``, ``peba1.keyswitch``: its five stages, siblings in
     that order (``backends``, ``gates``, ``ops/bootstrap``);
-  * ``peba1.sync_copy``: each copy of host values to the device, which on a
-    card waits for the stream (`utils.device.from_host`);
+  * ``peba1.sync_copy``: each upload of host values to the device, a miss
+    of the constants `utils.device.from_host` keeps there by value; on a
+    card it goes through pinned memory and does not wait for the stream, and
+    a warmed call makes none;
   * ``peba1.kernel.<wrapper>``: each call of a wrapper of
     ``ops/cuda_kernels`` (checks, workspaces, launch; the plain twin on a
     CPU tensor).

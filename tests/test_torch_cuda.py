@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from peba1_tpu_torch import gates, keys, lwe
+from peba1_tpu_torch.backends import CipherBackend
 from peba1_tpu_torch.ops import bootstrap as bs
 from peba1_tpu_torch.ops import cuda_kernels as ck
 from peba1_tpu_torch.ops import poly
 from peba1_tpu_torch.params import PRESETS, TOY, TOY_FAST, TOY_T2
+from peba1_tpu_torch.utils import device as dev
 
 
 @pytest.fixture
@@ -345,6 +347,59 @@ def test_bootstrap_on_the_card_equals_the_cpu(cuda_device, p):
                        gates.MU_1_8)
     assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)
     np.testing.assert_array_equal(gates.decrypt_bits(want, sk).numpy(), bits)
+
+
+def key_on(cpu_key, device):
+    return dataclasses.replace(cpu_key, **{
+        f.name: getattr(cpu_key, f.name).to(device)
+        for f in dataclasses.fields(cpu_key)
+        if isinstance(getattr(cpu_key, f.name), torch.Tensor)})
+
+
+def sleep_cycles(ms: float) -> int:
+    """GPU clock cycles of `torch.cuda._sleep` that take about `ms`."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    return int(10**7 * ms / start.elapsed_time(end))
+
+
+@pytest.mark.cuda
+def test_the_host_runs_ahead_of_the_card(cuda_device):
+    """On a warmed backend a level, a lone gate, a MUX and a CONSTANT of
+    values never seen before never wait for the stream: queued behind about
+    50 ms of device sleep, they all return while an event recorded after the
+    sleep is still pending.  Then their bits equal the plain path's."""
+    p = dataclasses.replace(TOY_FAST, use_gen_step=True, use_gen_full=True)
+    sk, cpu_key = keys.keygen(torch.Generator().manual_seed(1), p, "cpu")
+    g = torch.Generator().manual_seed(2)
+    cts = [gates.encrypt_bits(g, sk, np.arange(92) % m < m // 2) for m in (2, 3, 5)]
+
+    def calls(be, xyz, word):
+        x, y, z = xyz
+        return [*be.level([("AND", x, y), ("XOR", y, z), ("ORYN", x, z)]),
+                be.gate("NAND", x, z), be.MUX(x, y, z), be.CONSTANT(word, word.shape)]
+
+    be = CipherBackend(key_on(cpu_key, cuda_device))
+    on_card = [lwe.Lwe(c.a.to(cuda_device), c.b.to(cuda_device)) for c in cts]
+    calls(be, on_card, np.array([1, 0, 1], np.int32))            # warm
+    cycles = sleep_cycles(50)
+    torch.cuda.synchronize()
+    dev.reset_uploads()
+    word = np.array([0, 1, 1, 0, 1], np.int32)                   # a miss
+    torch.cuda._sleep(cycles)
+    slept = torch.cuda.Event()
+    slept.record()
+    got = calls(be, on_card, word)
+    pending = not slept.query()
+    torch.cuda.synchronize()
+    assert pending
+    assert dev.uploads["misses"] == 1 and dev.uploads["hits"] > 0
+    want = calls(CipherBackend(cpu_key), cts, word)
+    assert all(torch.equal(a.a.cpu(), b.a) and torch.equal(a.b.cpu(), b.b)
+               for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
