@@ -99,6 +99,8 @@ KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 184, 8),
     ("cmux_step_gen", "ring_2048_gen", 256, 8),
     ("cmux_step_gen", "ring_2048_gen", 8192, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 8192, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 184, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 760, 8),

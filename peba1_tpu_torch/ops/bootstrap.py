@@ -61,7 +61,8 @@ def blind_rotate(ck, bara: torch.Tensor, barb: torch.Tensor, mu: int) -> torch.T
         acc_flat = getattr(cuda_kernels, kernel)(amt_all, key, mu, p)
         return acc_flat.view(B, p.k + 1, p.N)
 
-    acc_flat = rotate.initial_accumulator(amt0, mu, p)
+    with span("accumulator"):
+        acc_flat = rotate.initial_accumulator(amt0, mu, p)
     acc = acc_flat.view(B, p.k + 1, p.N)
     if kernel == "cmux_step_gen":
         cuda_kernels.cmux_step_gen(acc_flat, amt, ck.bk_tp, p)     # in place

@@ -2,6 +2,8 @@
 
 A copy of ``peba1_tpu/params.py`` (dataclasses and math only): the JAX
 package's ``__init__`` pulls in jax, so it cannot be imported from there.
+Two presets are the port's own, with no JAX twin: ``tfhers_bool_gen``
+(tfhe-rs's boolean default lattice) and its CPU twin ``toy_tfhers_bool``.
 The kernel flags keep their names; ``ops/bootstrap.py`` says which of them
 run on the card.
 
@@ -333,6 +335,45 @@ PEBA1_128_T2_GENF = dataclasses.replace(PEBA1_128_T2_GEN, use_gen_full=True)
 PEBA1_128_FAST_GENF = dataclasses.replace(
     PEBA1_128_FAST_GEN, use_gen_full=True)
 
+# tfhe-rs (Zama) v0.1 boolean DEFAULT_PARAMETERS (tfhe/src/boolean/parameters
+# /mod.rs, https://github.com/zama-ai/tfhe-rs), its default 128-bit set for
+# Boolean circuits on a 32-bit torus with uniform binary keys: lwe_dimension
+# 722, glwe_dimension 2, polynomial_size 512, lwe_modular_std_dev
+# 1.3071021089943935e-05, glwe_modular_std_dev 4.990272175010415e-08,
+# pbs_base_log 6 / pbs_level 3, ks_base_log 3 / ks_level 4.  The published
+# rank-2 module lattice at N=512 (G = (k+1)*l = 9 digit polynomials, C = 12
+# limbs), run on kernel 1 (cmux_step_gen: one launch a call after the
+# initial accumulator) with the bootstrapping key exact (4 limbs, mask and
+# body).  One departure: the keyswitch digits are TFHE v1.x's unsigned
+# digits in [0, 2^3) after its rounding offset (12 bits kept), where
+# tfhe-rs decomposes signed -- the same shape and work, about 3x the
+# keyswitch noise variance, most of it a constant offset of each key (the
+# digits' mean 7/2 times the sum of the keyswitching key's noises; spread
+# over keys ~0.0029).  Measured phase sigma about that offset: 0.0031
+# against the 1/16 margin (H100_NOISE_tfhers_bool_gen.json).  Gadget digits
+# are signed and rounded to nearest, as in tfhe-rs.
+TFHERS_BOOL_GEN = TfheParams(
+    n=722,
+    lwe_stdev=1.3071021089943935e-05,
+    N=512,
+    k=2,
+    tlwe_stdev=4.990272175010415e-08,
+    l=3,
+    bgbit=6,
+    ks_t=4,
+    ks_basebit=3,
+    bk_limbs=4,
+    bk_body_limbs=4,
+    use_pallas_rotate=True,
+    use_fused_step=True,
+    use_gen_step=True,
+)
+
+# TFHERS_BOOL_GEN's twin for the CPU: the same k, gadget, keyswitch, limbs and
+# kernel flags at n=32, N=128, noise-free like TOY.
+TOY_TFHERS_BOOL = dataclasses.replace(
+    TFHERS_BOOL_GEN, n=32, N=128, lwe_stdev=0.0, tlwe_stdev=0.0)
+
 PRESETS = {
     "peba1_128": PEBA1_128,
     "peba1_128_fast": PEBA1_128_FAST,
@@ -345,10 +386,12 @@ PRESETS = {
     "peba1_128_t2_genf": PEBA1_128_T2_GENF,
     "ring_2048": RING_2048,
     "ring_2048_gen": RING_2048_GEN,
+    "tfhers_bool_gen": TFHERS_BOOL_GEN,
     "toy": TOY,
     "toy_fast": TOY_FAST,
     "toy_t2": TOY_T2,
     "toy_noisy": TOY_NOISY,
+    "toy_tfhers_bool": TOY_TFHERS_BOOL,
 }
 
 

@@ -13,6 +13,9 @@ nothing and never synchronizes.  The spans a bootstrap call opens:
   * ``peba1.prepare``, ``peba1.modswitch``, ``peba1.rotation``,
     ``peba1.extract``, ``peba1.keyswitch``: its five stages, siblings in
     that order (``backends``, ``gates``, ``ops/bootstrap``);
+  * ``peba1.accumulator``: inside the rotation, the starting accumulator
+    the kernels after it update in place (kernel 1, kernel 4 and the scan
+    of steps; the whole-rotation kernels set it up themselves);
   * ``peba1.sync_copy``: each upload of host values to the device, a miss
     of the constants `utils.device.from_host` keeps there by value; on a
     card it goes through pinned memory and does not wait for the stream, and

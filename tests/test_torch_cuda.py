@@ -99,11 +99,12 @@ def test_w_kernels_match_plain(cuda_device, kernel, name, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 67, 1000, 8192])
-@pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast"])
+@pytest.mark.parametrize("name", ["peba1_128_t2", "peba1_128_fast", "tfhers_bool_gen"])
 def test_rotate_decompose_at_its_batches(cuda_device, name, B):
     """Kernel 3 against its plain twin, one launch: a lone row, fewer rows
     than blocks, and 8,192 rows, where each block's rows outnumber its ring
-    of stages; the first rows rotate by 0, N and 2N - 1."""
+    of stages; the first rows rotate by 0, N and 2N - 1.  tfhers_bool_gen's
+    gadget (l = 3 digits of 6 bits) runs the kernel's run-time instance."""
     p = PRESETS[name]
     acc, amt, _ = random_step_inputs(p, B, 1, 18, cuda_device)
     amt = amt[0]
@@ -179,6 +180,7 @@ ROTATIONS = {"fast_genf": ("blind_rotate_gen_full", PRESETS["peba1_128_fast_genf
              "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"]),
              "fast_gen": ("cmux_step_gen", PRESETS["peba1_128_fast_gen"]),
              "ring_2048_gen": ("cmux_step_gen", PRESETS["ring_2048_gen"]),
+             "tfhers_gen": ("cmux_step_gen", PRESETS["tfhers_bool_gen"]),
              "t2_w": ("cmux_step", PRESETS["peba1_128_t2"]),
              "fast_w": ("cmux_step", PRESETS["peba1_128_fast_stream"])}
 
@@ -427,3 +429,22 @@ def test_dryrun_shares_the_card(cuda_device):
     for rank in rec["launches"]:
         for check in ("sharded_bootstrap", "gspmd_identify", "gspmd_identify_argmin"):
             assert rank[check].get("cmux_step", 0) > 0, rec["launches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,steps", [(184, 722), (8192, 8)])
+def test_kernel_1_at_the_tfhers_bool_lattice(cuda_device, B, steps):
+    """Kernel 1 at tfhers_bool_gen (G = 9 digit polynomials of 6-bit
+    digits, C = 12 limbs) against its plain twin: every one of the 722
+    steps of a bootstrap call at an authentication's rows, whose plan splits
+    the contraction 9 ways, and 8 steps at 8,192 rows, unsplit; one launch."""
+    p = PRESETS["tfhers_bool_gen"]
+    assert ck.tile_plan(B, p, "cmux_step_gen", ck._sm_count(cuda_device)).split == (
+        9 if B == 184 else 1)
+    acc, amt, vv = random_step_inputs(p, B, steps, 19, cuda_device)
+    want = ck.cmux_step_gen_plain(acc.clone(), amt, vv, p)
+    before = ck.launches["cmux_step_gen"]
+    got = ck.cmux_step_gen(acc.clone(), amt, vv, p)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    assert ck.launches["cmux_step_gen"] == before + 1

@@ -21,8 +21,14 @@ def test_preset_fields_equal(name):
     assert dataclasses.asdict(tp.PRESETS[name]) == dataclasses.asdict(jp.PRESETS[name])
 
 
+# The port's presets with no JAX twin (tests/test_torch_tfhers_bool.py holds
+# them to the benchmark's plain reference instead).
+PORT_ONLY = {"tfhers_bool_gen", "toy_tfhers_bool"}
+
+
 def test_preset_names_and_protocol_equal():
-    assert sorted(tp.PRESETS) == sorted(jp.PRESETS)
+    assert sorted(set(tp.PRESETS) - PORT_ONLY) == sorted(jp.PRESETS)
+    assert PORT_ONLY <= set(tp.PRESETS)
     assert dataclasses.asdict(tp.PEBA1_PROTOCOL) == dataclasses.asdict(jp.PEBA1_PROTOCOL)
     p = tp.PRESETS["peba1_128_t2_gen"]
     assert (p.limb_plan, p.big_n, p.log2_2N) == (

@@ -52,6 +52,58 @@ def test_noise_campaign(params):
         rec["phase_sigma"], ref["phase_sigma"])
 
 
+def analytic_phase_sigma(p) -> float:
+    """Phase sigma of a gate bootstrap's output after the keyswitch, over
+    the samples of one key (what a campaign's `phase_sigma`, a standard
+    deviation about the samples' mean, reads), as a fraction of the torus,
+    from p's numbers and the port's decomposition: the keyswitching key's
+    noise under k*N*t unsigned digits in [0, base), of variance
+    (base^2 - 1)/12; the keyswitch's rounding to t*basebit bits, on the
+    k*N/2 coefficients a binary key keeps; and the blind rotation's n
+    external products: the bootstrapping key's noise under (k+1)*l*N signed
+    digits of variance Bg^2/12, and the gadget's rounding to l*bgbit bits
+    on 1 + k*N/2 coefficients."""
+    kn, base = p.k * p.N, 1 << p.ks_basebit
+    ks_key = kn * p.ks_t * (base * base - 1) / 12 * p.lwe_stdev ** 2
+    ks_round = kn / 2 * 2.0 ** (-2 * p.ks_t * p.ks_basebit) / 12
+    bk_key = p.n * (p.k + 1) * p.l * p.N * (1 << 2 * p.bgbit) / 12 * p.tlwe_stdev ** 2
+    bk_round = p.n * (1 + kn / 2) * 2.0 ** (-2 * p.l * p.bgbit) / 12
+    return math.sqrt(ks_key + ks_round + bk_key + bk_round)
+
+
+def keyswitch_offset_sigma(p) -> float:
+    """Spread over keys of the constant offset that unsigned keyswitch
+    digits give one key's outputs: their mean (base - 1)/2 times the sum of
+    the k*N*t noises of the keyswitching key.  A standard deviation over one
+    key's samples does not see it; the margin must still hold it."""
+    return math.sqrt(p.k * p.N * p.ks_t) * ((1 << p.ks_basebit) - 1) / 2 * p.lwe_stdev
+
+
+def test_tfhers_bool_noise_campaign():
+    """tfhe-rs's boolean default lattice has no JAX campaign: its campaign
+    is held to the same pins at the committed campaigns' gate count, its
+    sigma to the analytic one within 25%, and its margin, less three
+    standard deviations of the key's offset, to 6 sigma."""
+    from peba1_tpu_torch.params import PRESETS
+    p = PRESETS["tfhers_bool_gen"]
+    rec = load("H100_NOISE_tfhers_bool_gen.json")
+    ref = reference_campaigns()["peba1_128_t2"]
+    assert rec["params"] == "tfhers_bool_gen" and rec["metric"] == ref["metric"]
+    on_the_card(rec)
+    assert rec["gates"] >= 10**6 and rec["gates"] == ref["gates"]
+    assert rec["batch"] == ref["batch"] and rec["chain_steps"] == ref["chain_steps"]
+    assert rec["chain_error_frac"] == 0.0
+    assert rec["final_decode_errs"] == 0
+    per_gate = math.erfc(rec["margin"] / rec["phase_sigma"] / math.sqrt(2))
+    assert per_gate < 1e-9
+    assert rec["margin_sigmas"] >= 6.0
+    sigma = analytic_phase_sigma(p)
+    assert 0.0030 < sigma < 0.0032
+    assert abs(rec["phase_sigma"] / sigma - 1) <= 0.25, (rec["phase_sigma"], sigma)
+    offset = keyswitch_offset_sigma(p)
+    assert (rec["margin"] - 3 * offset) / rec["phase_sigma"] >= 6.0
+
+
 def test_bench_record():
     rec = load("H100_BENCH.json")
     assert [r["params"] for r in rec["runs"]] == [

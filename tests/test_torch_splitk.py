@@ -46,7 +46,7 @@ SM_COUNTS = (132, 114)
 
 def test_every_rotation_configuration_is_planned():
     assert {selected_kernel(p) for p in CONFIGS.values()} == set(ROTATION_KERNELS)
-    assert len(CONFIGS) == 12
+    assert len(CONFIGS) == 14
 
 
 @pytest.mark.parametrize("sms", SM_COUNTS)
@@ -131,6 +131,7 @@ STEP_CASES = {
     "genf_toy_t2": ("blind_rotate_gen_full", TOY_T2),
     "gen_toy_t2": ("cmux_step_gen", dataclasses.replace(TOY_T2, use_gen_step=True)),
     "gen_toy_n256": ("cmux_step_gen", dataclasses.replace(TOY, N=256, use_gen_step=True)),
+    "gen_toy_tfhers_bool": ("cmux_step_gen", PRESETS["toy_tfhers_bool"]),
     "w_toy_t2": ("cmux_step", TOY_T2),
     "w_toy_fast": ("cmux_step", dataclasses.replace(TOY_FAST, use_fused_step=True)),
     "ext_toy_t2": ("extprod_recombine", dataclasses.replace(TOY_T2, use_fused_step=False,
