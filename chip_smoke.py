@@ -88,10 +88,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core ops, 2 per MAC
 MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
-# (kernel, preset or fused_params() label, batch, steps): the shapes each
+# (kernel, preset or params_of() label, batch, steps): the shapes each
 # kernel meets on its path; 184 and 760 are the authentication's and the
 # sweep's mean rows a bootstrap call (757 rounded up to a multiple of 8, as
-# torch._int_mm needs), 2048 the use_pallas_extprod chain's batch.
+# torch._int_mm needs), 2048 the use_pallas_extprod chain's batch; 1 to
+# 1,152 rows the calls of an authentication at the benchmark's TFHE v1.x
+# lattice, whose steps end in a partial wave of work items.
 KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 8192, 8),
     ("cmux_step_gen", "peba1_128_t2_gen", 1000, 8),
@@ -109,6 +111,11 @@ KERNEL_CASES = (
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 760, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 184, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 8192, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1152, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 512, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 128, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
     ("rotate_decompose", "peba1_128_t2", 2048, 1),
     ("rotate_decompose", "peba1_128_t2", 1000, 1),
@@ -170,9 +177,21 @@ def fused_params() -> dict:
                 use_fused_cmux=True)}
 
 
+def cell_params() -> dict:
+    """The lattices of the benchmark's cells that no preset holds: label ->
+    TfheParams.  peba1_tfhe128_genf is TFHE v1.x's lambda=128 set (l=3,
+    Bgbit=7, the key exact) on kernel 2, as perfbench/configs/peba1_tfhe128.json
+    runs it."""
+    from peba1_tpu_torch.params import PEBA1_128
+    return {"peba1_tfhe128_genf": dataclasses.replace(
+        PEBA1_128, use_pallas_rotate=True, use_gen_step=True, use_gen_full=True)}
+
+
 def params_of(name: str):
     from peba1_tpu_torch.params import PRESETS
-    return PRESETS[name] if name in PRESETS else fused_params()[name]
+    if name in PRESETS:
+        return PRESETS[name]
+    return {**fused_params(), **cell_params()}[name]
 
 
 class SmokeFailure(RuntimeError):

@@ -13,7 +13,8 @@
 // by cp.async, one unit ahead, and builds each 16-byte chunk of a column
 // from aligned 32-bit reads with funnel shifts (two reads a chunk: columns
 // four apart share words), stored at its 128-byte-swizzled place.  The
-// digit tile comes by TMA.  Split-K runs over the G digit polynomials.
+// digit tile comes by TMA.  Split-K runs over the G digit polynomials, and
+// a step's items are walked by stage (whole_rotation.cuh's piece_at).
 
 #pragma once
 
@@ -22,7 +23,9 @@
 namespace peba1 {
 namespace rot {
 
-constexpr int PRODUCER_REGS = 88;  // registers a producer thread keeps
+// Registers a producer thread keeps (the consumers get (504 - 104) / 2 =
+// 200); at 88 kernel 2's producer spills with the walk by stage.
+constexpr int PRODUCER_REGS = 104;
 
 // Bytes of one limb's generator window in shared memory: vv[j0 + y] for
 // y < N + 80, which covers every byte a tile reads (y <= N + 62) and the
@@ -77,31 +80,54 @@ __device__ __forceinline__ void expand_tile(uint32_t b_tile, uint32_t win, int n
   }
 }
 
-// The producer warpgroup in one step: every stage of the block's work items.
-// The (item, g) units of the block run in order; each unit's generator
-// windows are fetched into one of two buffers while the unit before it is
-// expanded.
+// A unit of the producer: stages [h0, h1) of digit polynomial gl (within
+// its split) of work item idx.
+struct Unit {
+  int idx, gl, h0, h1;
+};
+
+// Unit u of this block in a step walked by stage (whole_rotation.cuh's
+// piece_at, cut further at the polynomials' boundaries): the units of its
+// full-wave items whole, then those of its tail range.  A polynomial is
+// hs = N / BK stages and an item per_split polynomials, so the tail's run
+// of stages is also a run of units.  Past the last, an empty unit
+// (h0 >= h1), so that no count stays live.
+__device__ __forceinline__ Unit unit_at(int u, int per_split, const Args& a) {
+  const int W = gridDim.x, hs = a.N / BK, n_full = a.full_waves * per_split;
+  if (u < n_full) return {(int)blockIdx.x + u / per_split * W, u % per_split, 0, hs};
+  const int2 t = tail_range(a);
+  const int v = t.x / hs + (u - n_full);  // the unit's place in the tail's run
+  return {a.full_waves * W + v / per_split, v % per_split, max(t.x - v * hs, 0),
+          min(t.y - v * hs, hs)};
+}
+
+// The producer warpgroup in one step: every stage of the block's pieces.
+// The units run in order; each unit's generator windows are fetched into
+// one of two buffers while the unit before it is expanded.
 __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_map,
                                              const int8_t* vv_s, uint32_t win, const Args& a) {
   const int ptid = thread_idx() - 2 * 128;
   const int G = (a.k + 1) * a.l, C = a.k * a.mask_limbs + a.body_limbs;
   const int per_split = G / a.split;
-  const int n_units = (items_per_step(a) - blockIdx.x + gridDim.x - 1) / gridDim.x * per_split;
-  auto fetch = [&](int unit) {
-    const Item it = item_at(blockIdx.x + unit / per_split * gridDim.x, a);
-    const int g = it.split * per_split + unit % per_split;
+  auto fetch = [&](const Unit& un, int unit) {
+    const Item it = item_at(un.idx, a);
+    const int g = it.split * per_split + un.gl;
     fetch_window(win + (unit & 1) * 4 * window_bytes(a.N),
                  vv_s + ((size_t)g * C + it.c0) * 2 * a.N, it.nl, it.j0, a.N, ptid);
   };
-  if (n_units > 0) fetch(0);
-  for (int unit = 0; unit < n_units; ++unit) {
-    const Item it = item_at(blockIdx.x + unit / per_split * gridDim.x, a);
-    const int g = it.split * per_split + unit % per_split;
+  const Unit first = unit_at(0, per_split, a);
+  if (first.h0 < first.h1) fetch(first, 0);
+  for (int unit = 0;; ++unit) {
+    const Unit un = unit_at(unit, per_split, a);
+    if (un.h0 >= un.h1) break;
+    const Item it = item_at(un.idx, a);
+    const int g = it.split * per_split + un.gl;
     asm volatile("cp.async.wait_all;" ::: "memory");
     producer_sync();  // this unit's windows have landed; the other buffer is free
-    if (unit + 1 < n_units) fetch(unit + 1);
+    const Unit next = unit_at(unit + 1, per_split, a);
+    if (next.h0 < next.h1) fetch(next, unit + 1);
     const uint32_t w = win + (unit & 1) * 4 * window_bytes(a.N);
-    for (int h = 0; h < a.N / BK; ++h) {
+    for (int h = un.h0; h < un.h1; ++h) {
       r.wait_empty();
       if (ptid == 0) {
         mbar_expect_tx(r.full(r.stage), A_BYTES);
@@ -152,7 +178,7 @@ __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint
     for (int s = 0; s < a.n_steps; ++s) {
       digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
       grid_sync(grid_bar, bar);
-      consume_step(r, acc, n_st, a);
+      consume_step_by_stage(r, acc, n_st, a);
       grid_sync(grid_bar, bar);
     }
   }
@@ -170,8 +196,18 @@ inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const 
   const int extra = 2 * 4 * window_bytes(a.N);  // two buffers of up to four limbs
   a.stages = ring_stages(extra);
   if (a.stages == 0) return (int)cudaErrorInvalidConfiguration;
+  const int smem = ring_smem(a.stages, extra);
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  // The walk by stage on this grid: U items of P stages a step.
+  const int U = (a.B + BM - 1) / BM * (a.k + 1) * (a.N / BN) * a.split;  // items_per_step
+  const int tail = U % blocks * (G / a.split * (a.N / BK));
+  a.full_waves = U / blocks;
+  a.tail_len = tail / blocks;
+  a.tail_longer = tail % blocks;
   CUtensorMap digits_map{};
-  cudaError_t err = encode_map(&digits_map, digits, (uint64_t)a.B, (uint64_t)G * a.N, BM);
+  err = encode_map(&digits_map, digits, (uint64_t)a.B, (uint64_t)G * a.N, BM);
   if (err != cudaSuccess) return (int)err;
   uint32_t* acc_p = static_cast<uint32_t*>(acc);
   const int32_t* amt_p = static_cast<const int32_t*>(amt);
@@ -179,8 +215,8 @@ inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const 
   int8_t* digits_p = static_cast<int8_t*>(digits);
   unsigned int* bar_p = static_cast<unsigned int*>(grid_bar);
   void* args[] = {&digits_map, &acc_p, &amt_p, &vv_p, &digits_p, &bar_p, &a};
-  return (int)launch_cooperative(kernel, ring_smem(a.stages, extra), args,
-                                 static_cast<cudaStream_t>(stream));
+  return (int)launch_cooperative_on(kernel, blocks, smem, args,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace rot

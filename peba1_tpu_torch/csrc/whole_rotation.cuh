@@ -32,6 +32,18 @@
 // recombination is a sum mod 2^32, so the result is bit-equal whatever the
 // order in which the adds land.
 //
+// The walk of a step's items: kernels 4 and 6 hand them out round-robin
+// (item blockIdx.x + w * gridDim.x), so a step whose U items are not a
+// multiple of the grid W lasts ceil(U/W) items on the blocks that take one
+// more.  Kernels 1 and 2 walk by stage (consume_step_by_stage): the full
+// waves round-robin as before, then the U mod W items left as one run of
+// stages cut evenly over the W blocks (tail_range), a step lasting
+// floor(U/W) * P + ceil((U mod W) * P / W) stages for items of P stages,
+// whatever the split; tile_plan gives them split 1, the fewest pieces.  A
+// piece of an item adds a delta over a subset of the item's terms, so its
+// int32 sums stay in the same bound and the result is bit-equal, as for
+// split-K.
+//
 // Memory ordering across blocks: acc is read with ld.global.cg (L2) and
 // written with st.global.cg or red; the digits are written with st.global.cg
 // by the generic proxy and read by TMA through the async proxy, so the
@@ -66,6 +78,11 @@ struct Args {
   int split;    // S: splits of the contraction
   int stages;   // ring depth
   uint32_t mu;
+  // The walk by stage (kernels 1 and 2; 0 elsewhere), set by the launcher
+  // from the grid it launches: full_waves = U / W for U items a step on W
+  // blocks; the tail's (U mod W) * P stages are tail_len a block, and one
+  // more on the first tail_longer blocks.
+  int full_waves, tail_len, tail_longer;
 };
 
 // --- PTX wrappers ----------------------------------------------------------
@@ -450,6 +467,34 @@ __device__ __forceinline__ Item item_at(int idx, const Args& a) {
   return it;
 }
 
+// The stages [lo, hi) that this block takes of a step's tail: the U mod W
+// items left after the full waves of U items of P stages over the grid's W
+// blocks, as one run of stages in the order (item, stage), cut into W
+// contiguous ranges, the first (tail stages mod W) of them one stage longer.
+// The launcher puts the grid's shares in Args, which the kernel reads from
+// its parameter space; cuda_kernels.TilePlan.tail_range mirrors it.
+__device__ __forceinline__ int2 tail_range(const Args& a) {
+  const int b = blockIdx.x, lo = b * a.tail_len + min(b, a.tail_longer);
+  return make_int2(lo, lo + a.tail_len + (b < a.tail_longer ? 1 : 0));
+}
+
+// Stages [first, end) of work item idx.
+struct Piece {
+  int idx, first, end;
+};
+
+// Piece i of this block in a step of items of P stages, walked by stage:
+// its items of the full waves whole, then its tail range cut at the items'
+// boundaries (at most two pieces: a range is at most P stages long); past
+// the last, an empty piece (first >= end), so that no count stays live.
+__device__ __forceinline__ Piece piece_at(int i, int P, const Args& a) {
+  const int W = gridDim.x, full = a.full_waves;
+  if (i < full) return {(int)blockIdx.x + i * W, 0, P};
+  const int2 t = tail_range(a);
+  const int r = t.x / P + (i - full), s0 = r * P;  // r: the item's place in the tail
+  return {full * W + r, max(t.x - s0, 0), min(t.y - s0, P)};
+}
+
 struct Ring {
   uint32_t base;     // stage s at base + s * STAGE_BYTES, 1024-aligned
   uint32_t bars;     // full[s] at bars + 8s, empty[s] at bars + 8(stages + s)
@@ -567,17 +612,33 @@ __device__ __forceinline__ void consume_item(Ring& r, uint32_t* acc, const Item&
   add_tile<NL>(acc, d, a.B, a.N, a.k + 1, it.o, it.m0 + wg * (BM / 2), it.j0);
 }
 
+__device__ __forceinline__ void consume_any(Ring& r, uint32_t* acc, const Item& it, int n_st,
+                                            int wg, const Args& a) {
+  switch (it.nl) {
+    case 1: consume_item<1>(r, acc, it, n_st, wg, a); break;
+    case 2: consume_item<2>(r, acc, it, n_st, wg, a); break;
+    case 3: consume_item<3>(r, acc, it, n_st, wg, a); break;
+    default: consume_item<4>(r, acc, it, n_st, wg, a); break;
+  }
+}
+
+// The consumers' step, items of n_st stages round-robin (kernels 4 and 6).
 __device__ __forceinline__ void consume_step(Ring& r, uint32_t* acc, int n_st, const Args& a) {
   const int wg = warpgroup();
   const int n_items = items_per_step(a);
-  for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x) {
-    const Item it = item_at(idx, a);
-    switch (it.nl) {
-      case 1: consume_item<1>(r, acc, it, n_st, wg, a); break;
-      case 2: consume_item<2>(r, acc, it, n_st, wg, a); break;
-      case 3: consume_item<3>(r, acc, it, n_st, wg, a); break;
-      default: consume_item<4>(r, acc, it, n_st, wg, a); break;
-    }
+  for (int idx = blockIdx.x; idx < n_items; idx += gridDim.x)
+    consume_any(r, acc, item_at(idx, a), n_st, wg, a);
+}
+
+// The consumers' step walked by stage (kernels 1 and 2): piece_at's pieces,
+// each consumed and added into acc on its own.
+__device__ __forceinline__ void consume_step_by_stage(Ring& r, uint32_t* acc, int n_st,
+                                                      const Args& a) {
+  const int wg = warpgroup();
+  for (int i = 0;; ++i) {
+    const Piece pc = piece_at(i, n_st, a);
+    if (pc.end <= pc.first) break;
+    consume_any(r, acc, item_at(pc.idx, a), pc.end - pc.first, wg, a);
   }
 }
 
@@ -653,6 +714,17 @@ inline cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
   return cudaSuccess;
 }
 
+// Launches `kernel` (THREADS threads, `smem` bytes) cooperatively on
+// `blocks` blocks.
+template <typename Kernel>
+inline cudaError_t launch_cooperative_on(Kernel kernel, int blocks, int smem, void** args,
+                                         cudaStream_t stream) {
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
+                                                dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // Launches `kernel` (THREADS threads, `smem` bytes) cooperatively with one
 // block for each that fits on the card at once.
 template <typename Kernel>
@@ -661,10 +733,7 @@ inline cudaError_t launch_cooperative(Kernel kernel, int smem, void** args,
   int blocks = 0;
   cudaError_t err = resident_blocks(kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
-                                    dim3(THREADS), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative_on(kernel, blocks, smem, args, stream);
 }
 
 }  // namespace rot

@@ -27,11 +27,15 @@ import os
 import subprocess
 import sys
 
-# (kernel, preset or chip_smoke.fused_params() label, batch, steps): the
+# (kernel, preset or chip_smoke.params_of() label, batch, steps): the
 # kernels on csrc/whole_rotation.cuh at the sweep's (760) and the
 # authentication's (184) rows and at 8,192 (kernel 1 also at ring_2048_gen,
 # kernel 4 also at peba1_128_fast), kernel 5 at 8,192 and 1,000 rows, and
-# every smoke case of kernel 3.
+# every smoke case of kernel 3; then the benchmark cells' lattices: kernel 2
+# at TFHE v1.x's (an authentication's calls of 1 to 512 rows and 8,192) and
+# kernel 1 at tfhers_bool_gen.  Labels are resolved by this tree's
+# chip_smoke.params_of in both turns, so a parent that lacks a label runs
+# it all the same.
 CASES = (
     ("fused_blind_rotate", "peba1_128_fast_fused", 8192, 8),
     ("fused_blind_rotate", "peba1_128_fast_fused", 760, 8),
@@ -62,6 +66,13 @@ CASES = (
     ("cmux_step", "peba1_128_fast", 1000, 8),
     ("extprod_recombine", "peba1_128_t2", 8192, 1),
     ("extprod_recombine", "peba1_128_t2", 1000, 1),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 8192, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 512, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 256, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 128, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 8192, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 128, 8),
 )
 # (preset or label of `EXTPROD`, batches): whole bootstrap calls of the
 # paths that call a kernel once a CMUX step: w_streaming (cmux_step, W
@@ -80,6 +91,10 @@ import chip_smoke
 spec = importlib.util.spec_from_file_location("kernel_ab_here", {here!r})
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
+spec = importlib.util.spec_from_file_location("chip_smoke_here", {smoke!r})
+smoke_here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke_here)
+chip_smoke.params_of = smoke_here.params_of
 device = torch.device("cuda", 0)
 for kernel, params, B, steps in {cases!r}:
     case = chip_smoke.kernel_case(kernel, params, B, steps, device, timed=True)
@@ -156,7 +171,9 @@ def bootstrap_calls(params: str, batches, device, reps: int = 3) -> "list[dict]"
 def turn(root: str, cases=CASES, calls=BOOTSTRAP_CASES) -> "list[dict]":
     """One process in `root`: its kernel_case of every case, then the
     bootstrap calls."""
-    script = _TURN.format(root=root, here=os.path.abspath(__file__), cases=list(cases),
+    here = os.path.abspath(__file__)
+    smoke = os.path.join(os.path.dirname(os.path.dirname(here)), "chip_smoke.py")
+    script = _TURN.format(root=root, here=here, smoke=smoke, cases=list(cases),
                           calls=list(calls))
     proc = subprocess.run([sys.executable, "-c", script],
                           cwd=root, capture_output=True, text=True, timeout=1500)

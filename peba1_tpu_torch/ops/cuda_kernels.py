@@ -30,8 +30,13 @@ with ``nvcc`` for ``sm_90a`` at first use into its own shared library, all
 at once, under the package's ``build/`` directory (keyed by one hash of
 every source and the flags; git ignores it), and bound with ctypes.
 ``launches`` counts the CUDA kernel launches each wrapper makes: one per
-call for every wrapper.  Each wrapper call is the span
-``peba1.kernel.<wrapper>`` in a profiler's trace (``utils/logging``).
+call for every wrapper.  ``tail_split`` counts the launches of
+`cmux_step_gen` and `blind_rotate_gen_full` whose steps end in a partial
+wave of work items, which those kernels spread over the grid by stage
+(`TilePlan.pieces`), and the stages a step this saves on the slowest block
+(`TilePlan.critical_stages`), summed over those launches.  Each wrapper call
+is the span ``peba1.kernel.<wrapper>`` in a profiler's trace
+(``utils/logging``).
 """
 
 from __future__ import annotations
@@ -73,12 +78,18 @@ _ENTRIES = {
 
 launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
             "extprod_recombine": 0, "cmux_step": 0, "fused_blind_rotate": 0}
+tail_split = {"launches": 0, "stages_saved": 0}
 _fns: dict = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def reset_tail_split() -> None:
+    for name in tail_split:
+        tail_split[name] = 0
 
 
 def _nvcc() -> str:
@@ -190,11 +201,27 @@ class TilePlan:
     GEMM: `tiles` = ceil(B/128) row tiles x (k+1) output polynomials x
     N/64 column tiles, each cut into `split` work items along the
     contraction's `blocks` blocks (the G*U (g, u) blocks of the A-matrix, or
-    the G digit polynomials of the generator)."""
+    the G digit polynomials of the generator), a block `depth` stages of
+    128 contraction bytes.
+
+    The walk of the items over a grid of `grid` blocks: kernels 4 and 6
+    hand them out round-robin; kernels 1 and 2 walk by stage (`pieces`),
+    as ``whole_rotation.cuh``'s ``piece_at`` does."""
 
     split: int
     blocks: int
     tiles: int
+    depth: int
+
+    @property
+    def items(self) -> int:
+        """Work items of a step, split fastest (``item_at``)."""
+        return self.tiles * self.split
+
+    @property
+    def stages(self) -> int:
+        """Stages of one work item."""
+        return self.blocks // self.split * self.depth
 
     def blocks_of(self, sp: int) -> range:
         """The contraction blocks of split `sp`, as the kernels walk them:
@@ -202,6 +229,40 @@ class TilePlan:
         generator."""
         per = self.blocks // self.split
         return range(sp * per, (sp + 1) * per)
+
+    def tail_range(self, block: int, grid: int) -> range:
+        """The stages of a step's tail that `block` takes: the items left
+        after the full waves, as one run of stages in the order (item,
+        stage), cut into `grid` contiguous ranges, the first (tail stages
+        mod grid) of them one stage longer (``tail_range``)."""
+        q, rem = divmod(self.items % grid * self.stages, grid)
+        lo = block * q + min(block, rem)
+        return range(lo, lo + q + (block < rem))
+
+    def pieces(self, block: int, grid: int) -> "list[tuple[int, int, int]]":
+        """(item, first stage, end stage) of every piece that `block` runs
+        in a step walked by stage: its items of the full waves whole, as
+        round-robin hands them out, then its tail range cut at the items'
+        boundaries."""
+        full, P = self.items // grid, self.stages
+        out = [(block + w * grid, 0, P) for w in range(full)]
+        tail = self.tail_range(block, grid)
+        s = tail.start
+        while s < tail.stop:
+            r = s // P
+            end = min(tail.stop, (r + 1) * P)
+            out.append((full * grid + r, s - r * P, end - r * P))
+            s = end
+        return out
+
+    def critical_stages(self, grid: int) -> int:
+        """The most stages a block runs in a step walked by stage:
+        floor(U/W)*P + ceil((U mod W)*P/W), which is ceil(U*P/W)."""
+        return -(-self.items * self.stages // grid)
+
+    def round_robin_stages(self, grid: int) -> int:
+        """The most stages a block runs in a step walked round-robin."""
+        return -(-self.items // grid) * self.stages
 
 
 def contraction_blocks(params: TfheParams, kernel: str, K: int | None = None) -> int:
@@ -218,23 +279,53 @@ def contraction_blocks(params: TfheParams, kernel: str, K: int | None = None) ->
     raise ValueError(f"no tile plan for {kernel}")
 
 
+# The kernels that walk a step's work items by stage (`TilePlan.pieces`);
+# the others hand them out round-robin.
+BY_STAGE = ("cmux_step_gen", "blind_rotate_gen_full")
+
+
+def round_robin_split(tiles: int, blocks: int, sm_count: int) -> int:
+    """The split that fills `sm_count` SMs when items are handed out
+    round-robin: the least divisor S of the contraction's blocks that gives
+    at least two work items per SM (every split adds its delta into acc with
+    an atomic add, so fewer is cheaper), or all the blocks when even that is
+    too few."""
+    for s in range(1, blocks + 1):
+        if blocks % s == 0 and tiles * s >= 2 * sm_count:
+            return s
+    return blocks
+
+
 def tile_plan(B: int, params: TfheParams, kernel: str, sm_count: int,
               K: int | None = None) -> TilePlan:
     """The split of a step's contraction at batch B on a card of `sm_count`
-    SMs: the least divisor S of the contraction's blocks that gives at
-    least two work items per SM (every split adds its delta into acc with
-    an atomic add, so fewer is cheaper), or all the blocks when even that
-    is too few.  Rows are always tiled by 128: at every batch a step's
-    weight tiles cross from L2 into shared memory once per row tile, so a
-    smaller row tile only adds traffic; split-K, not smaller tiles, fills
-    the card at the protocol's small batches."""
+    SMs.  Rows are always tiled by 128: at every batch a step's weight tiles
+    cross from L2 into shared memory once per row tile, so a smaller row
+    tile only adds traffic.  The kernels that hand items out round-robin
+    fill the card at the protocol's small batches by split-K
+    (`round_robin_split`).  The kernels of `BY_STAGE` spread the last
+    partial wave of items over the grid by stage, so a step lasts
+    ceil(items x stages / SMs) stages on its slowest block whatever the
+    split; they take split 1, since a split only adds pieces, each drained
+    and added into acc on its own (PERF.md §6, PR 19, has the split against
+    the step time on the H100)."""
     p = params
     tiles = -(-B // BM_ROWS) * (p.k + 1) * (p.N // BN_COLS)
     blocks = contraction_blocks(p, kernel, K)
-    for s in range(1, blocks + 1):
-        if blocks % s == 0 and tiles * s >= 2 * sm_count:
-            return TilePlan(s, blocks, tiles)
-    return TilePlan(blocks, blocks, tiles)
+    depth = (p.k + 1) * p.l * p.N // blocks // BK_BYTES    # G*N contraction bytes
+    split = 1 if kernel in BY_STAGE else round_robin_split(tiles, blocks, sm_count)
+    return TilePlan(split, blocks, tiles, depth)
+
+
+def _count_tail_split(plan: TilePlan, grid: int) -> None:
+    """`tail_split` after a launch of a `BY_STAGE` kernel on `grid` blocks:
+    a launch whose steps end in a partial wave, and the stages a step saved
+    against the round-robin walk at `round_robin_split`."""
+    round_robin = dataclasses.replace(
+        plan, split=round_robin_split(plan.tiles, plan.blocks, grid))
+    tail_split["launches"] += int(plan.items % grid != 0)
+    tail_split["stages_saved"] += (round_robin.round_robin_stages(grid)
+                                   - plan.critical_stages(grid))
 
 
 _sm_counts: "dict[int, int]" = {}
@@ -279,12 +370,14 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
         return acc_flat
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
     grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    plan = tile_plan(B, p, "cmux_step_gen", _sm_count(device))
+    sms = _sm_count(device)
+    plan = tile_plan(B, p, "cmux_step_gen", sms)
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_cmux_step_gen", device, acc_flat.data_ptr(), amt.data_ptr(),
             vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S, N, k, l, bgbit,
             off, ml, bl, plan.split)
     launches["cmux_step_gen"] += 1
+    _count_tail_split(plan, sms)
     return acc_flat
 
 
@@ -328,12 +421,14 @@ def blind_rotate_gen_full(amt: torch.Tensor, vv: torch.Tensor, mu: int,
         return acc
     digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
     grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    plan = tile_plan(B, p, "blind_rotate_gen_full", _sm_count(device))
+    sms = _sm_count(device)
+    plan = tile_plan(B, p, "blind_rotate_gen_full", sms)
     N, k, l, bgbit, off, ml, bl = _step_args(p)
     _launch("peba1_blind_rotate_gen_full", device, acc.data_ptr(), amt.data_ptr(),
             vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S1 - 1, N, k, l,
             bgbit, off, ml, bl, plan.split, mu & 0xFFFFFFFF)
     launches["blind_rotate_gen_full"] += 1
+    _count_tail_split(plan, sms)
     return acc
 
 

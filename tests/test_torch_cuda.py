@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cell_params
 from peba1_tpu_torch import gates, keys, lwe
 from peba1_tpu_torch.backends import CipherBackend
 from peba1_tpu_torch.ops import bootstrap as bs
@@ -233,7 +234,7 @@ def largest_split(monkeypatch):
 
     def largest(*args, **kw):
         got = plan(*args, **kw)
-        return ck.TilePlan(got.blocks, got.blocks, got.tiles)
+        return dataclasses.replace(got, split=got.blocks)
 
     monkeypatch.setattr(ck, "tile_plan", largest)
 
@@ -436,11 +437,11 @@ def test_dryrun_shares_the_card(cuda_device):
 def test_kernel_1_at_the_tfhers_bool_lattice(cuda_device, B, steps):
     """Kernel 1 at tfhers_bool_gen (G = 9 digit polynomials of 6-bit
     digits, C = 12 limbs) against its plain twin: every one of the 722
-    steps of a bootstrap call at an authentication's rows, whose plan splits
-    the contraction 9 ways, and 8 steps at 8,192 rows, unsplit; one launch."""
+    steps of a bootstrap call at an authentication's rows, where a step's
+    48 items of 36 stages are spread over the grid by stage, and 8 steps at
+    8,192 rows; both unsplit, one launch."""
     p = PRESETS["tfhers_bool_gen"]
-    assert ck.tile_plan(B, p, "cmux_step_gen", ck._sm_count(cuda_device)).split == (
-        9 if B == 184 else 1)
+    assert ck.tile_plan(B, p, "cmux_step_gen", ck._sm_count(cuda_device)).split == 1
     acc, amt, vv = random_step_inputs(p, B, steps, 19, cuda_device)
     want = ck.cmux_step_gen_plain(acc.clone(), amt, vv, p)
     before = ck.launches["cmux_step_gen"]
@@ -448,3 +449,40 @@ def test_kernel_1_at_the_tfhers_bool_lattice(cuda_device, B, steps):
     torch.cuda.synchronize()
     assert int((got != want).sum()) == 0
     assert ck.launches["cmux_step_gen"] == before + 1
+
+
+# Kernels 1 and 2 at the benchmark cells' lattices and at the default t2_gen.
+WALKED = {"tfhe128_genf": ("blind_rotate_gen_full", cell_params()["peba1_tfhe128_genf"]),
+          "tfhers_gen": ("cmux_step_gen", PRESETS["tfhers_bool_gen"]),
+          "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 92, 128, 256, 512, 1152, 8192])
+@pytest.mark.parametrize("name", sorted(WALKED))
+def test_the_walk_by_stage_matches_plain(cuda_device, name, B):
+    """Kernels 1 and 2 walk each step's last partial wave of work items by
+    stage: three steps against the plain twin at an authentication's call
+    sizes and at 8,192 rows, one launch, and `tail_split` counts what
+    `TilePlan` predicts for it on the card's SMs (the stages saved against
+    round-robin at its own split)."""
+    kernel, p = WALKED[name]
+    steps = 3
+    acc, amt, vv = random_step_inputs(p, B, steps + 1, 20, cuda_device)
+    vv = vv[:steps].contiguous()
+    args = ((acc, amt[1:].contiguous(), vv) if kernel == "cmux_step_gen"
+            else (amt, vv, -(1 << 29) + 7))
+    want = call(getattr(ck, kernel + "_plain"), args, p)
+    sms = ck._sm_count(cuda_device)
+    plan = ck.tile_plan(B, p, kernel, sms)
+    before = ck.launches[kernel]
+    ck.reset_tail_split()
+    got = call(getattr(ck, kernel), args, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches[kernel] == before + 1
+    round_robin = dataclasses.replace(
+        plan, split=ck.round_robin_split(plan.tiles, plan.blocks, sms))
+    assert ck.tail_split == {
+        "launches": int(plan.items % sms != 0),
+        "stages_saved": round_robin.round_robin_stages(sms) - plan.critical_stages(sms)}

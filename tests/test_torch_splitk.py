@@ -5,17 +5,22 @@ arithmetic.
 `cmux_step_gen`, `blind_rotate_gen_full`, `cmux_step`, `extprod_recombine`
 and `fused_blind_rotate` run; each split adds its recombined delta into the
 accumulator (or `extprod_recombine`'s zeroed output) with an atomic add on
-the card.  Here, on the CPU: the plan for every configuration that runs one
-of them covers each contraction block exactly once and follows its rule,
-and the per-split deltas, summed mod 2^32, are the unsplit external product
-bit for bit; one step built from them equals the Pallas kernels in
-interpret mode.  Each of these kernels is one launch a bootstrap call
+the card.  `cmux_step_gen` and `blind_rotate_gen_full` walk a step's work
+items by stage (`TilePlan.pieces`, the mirror of ``whole_rotation.cuh``'s
+``piece_at``).  Here, on the CPU: the plan for every configuration that
+runs one of them covers each contraction block exactly once and follows its
+rule; the walk by stage covers every stage of every item once and lasts
+ceil(items x stages / grid) stages; and the per-split and per-piece deltas,
+summed mod 2^32, are the unsplit external product bit for bit; one step
+built from them equals the Pallas kernels in interpret mode.  Each of these kernels is one launch a bootstrap call
 (`cmux_step` under w_streaming one a CMUX step), as
 `chip_smoke.expected_launches` counts it.  The CUDA kernels themselves are
 tested on the card by tests/test_torch_cuda.py and `python3 chip_smoke.py`.
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import expected_launches, fused_params
+from chip_smoke import cell_params, expected_launches, fused_params
 from peba1_tpu.ops import pallas_kernels as pk
 from peba1_tpu.ops import poly as jpoly
 from peba1_tpu.params import TOY, TOY_FAST, TOY_T2
@@ -67,25 +72,34 @@ def test_tile_plan_covers_each_block_once_and_follows_its_rule(name, B, sms):
     if kernel == "fused_blind_rotate":
         assert sorted(divmod(b, U) for b in covered) == [(g, u) for g in range(G)
                                                          for u in range(U)]
-    # The rule: the least divisor giving two items per SM, else every block.
+    # The rule: kernels walked by stage are unsplit; the others take the
+    # least divisor giving two items per SM, else every block.
     enough = [d for d in range(1, plan.blocks + 1)
               if plan.blocks % d == 0 and plan.tiles * d >= 2 * sms]
-    assert plan.split == (enough[0] if enough else plan.blocks)
+    round_robin = enough[0] if enough else plan.blocks
+    assert ck.round_robin_split(plan.tiles, plan.blocks, sms) == round_robin
+    assert plan.split == (1 if kernel in ck.BY_STAGE else round_robin)
 
 
 def test_tile_plan_splits_the_protocol_batches():
-    """The authentication's 184 rows and the sweep's 760 are split; 8,192
-    rows fill the card unsplit."""
+    """The authentication's 184 rows and the sweep's 760 are split on the
+    round-robin kernel; 8,192 rows fill the card unsplit.  The kernels
+    walked by stage are unsplit at every batch, though round-robin would
+    split them as it splits kernel 6."""
     fast = fused_params()["peba1_128_fast_fused"]
     genf = PRESETS["peba1_128_fast_genf"]
     t2_gen = PRESETS["peba1_128_t2_gen"]
     assert [ck.tile_plan(B, fast, "fused_blind_rotate", 132).split
             for B in (184, 760, 8192)] == [8, 2, 1]
     assert [ck.tile_plan(B, genf, "blind_rotate_gen_full", 132).split
-            for B in (184, 760, 8192)] == [4, 2, 1]
+            for B in (184, 760, 8192)] == [1, 1, 1]
+    assert [ck.round_robin_split(ck.tile_plan(B, genf, "blind_rotate_gen_full", 132).tiles,
+                                 4, 132) for B in (184, 760, 8192)] == [4, 2, 1]
     # k=2: G = 6 digit polynomials; 184 rows are 2 x 3 x 8 = 48 tiles.
     assert [ck.tile_plan(B, t2_gen, "cmux_step_gen", 132).split
-            for B in (184, 760, 8192)] == [6, 2, 1]
+            for B in (184, 760, 8192)] == [1, 1, 1]
+    assert [ck.round_robin_split(ck.tile_plan(B, t2_gen, "cmux_step_gen", 132).tiles,
+                                 6, 132) for B in (184, 760, 8192)] == [6, 2, 1]
 
 
 def test_tile_plan_splits_the_w_kernels():
@@ -98,6 +112,99 @@ def test_tile_plan_splits_the_w_kernels():
     assert [ck.tile_plan(B, fast, "cmux_step", 132).split for B in (184, 1000)] == [4, 2]
     assert [ck.tile_plan(B, t2, "extprod_recombine", 132).split
             for B in (1000, 2048)] == [2, 1]
+
+
+# --- the walk by stage of kernels 1 and 2 -----------------------------------
+
+TFHE128 = cell_params()["peba1_tfhe128_genf"]
+WALK_CONFIGS = {**CONFIGS, **cell_params()}
+WALK_BATCHES = (1, 92, 128, 256, 512, 1152, 8192)
+GRIDS = (132, 114, 78)
+# Rows of each bootstrap call of one authentication (function_f then
+# function_g, 128 slots of 8 bits, bound 256) -> calls of that size: 2,351
+# calls, 216,176 bootstraps.
+AUTH_CALL_ROWS = {1: 425, 2: 472, 4: 471, 8: 85, 9: 3, 16: 69, 24: 1, 32: 69, 48: 1, 64: 69,
+                  128: 248, 256: 225, 512: 202, 1024: 8, 1152: 3}
+
+
+def test_the_cell_lattice_is_the_benchmark_configuration():
+    """chip_smoke's peba1_tfhe128_genf is what the harness builds from
+    perfbench/configs/peba1_tfhe128.json."""
+    from perfbench import port
+    config = Path(__file__).resolve().parent.parent / "perfbench/configs/peba1_tfhe128.json"
+    assert port.params(json.loads(config.read_text())) == TFHE128
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("B", WALK_BATCHES)
+@pytest.mark.parametrize("name", sorted(WALK_CONFIGS))
+def test_the_walk_by_stage_covers_each_stage_once(name, B, grid):
+    """The pieces of all `grid` blocks cover every (item, stage) of a step
+    exactly once; the slowest block runs floor(U/W)*P + ceil((U mod W)*P/W)
+    stages, no more than round-robin; and a step whose items fill whole
+    waves is walked round-robin."""
+    p = WALK_CONFIGS[name]
+    plan = ck.tile_plan(B, p, selected_kernel(p), grid)
+    U, P = plan.items, plan.stages
+    assert P == plan.blocks // plan.split * plan.depth and P > 0
+    seen = np.zeros(U * P, dtype=np.int64)
+    longest = 0
+    for b in range(grid):
+        pieces = plan.pieces(b, grid)
+        assert len(pieces) <= U // grid + 2
+        for item, first, end in pieces:
+            assert 0 <= item < U and 0 <= first < end <= P
+            seen[item * P + first:item * P + end] += 1
+        longest = max(longest, sum(end - first for _, first, end in pieces))
+        if U % grid == 0:
+            assert pieces == [(i, 0, P) for i in range(b, U, grid)]
+    assert (seen == 1).all()
+    assert longest == plan.critical_stages(grid) == U // grid * P + -(-(U % grid) * P // grid)
+    assert longest <= plan.round_robin_stages(grid) == -(-U // grid) * P
+
+
+@pytest.mark.parametrize("grid", [1, 2, 3, 12, 132])
+def test_a_whole_last_wave_is_walked_round_robin(grid):
+    """U a multiple of the grid: no tail, every block its round-robin items
+    whole, and nothing counted as split or saved."""
+    plan = ck.TilePlan(1, 6, 132, 8)                          # 132 items of 48 stages
+    assert plan.items % grid == 0
+    for b in range(grid):
+        assert plan.tail_range(b, grid) == range(0, 0)
+        assert plan.pieces(b, grid) == [(i, 0, 48) for i in range(b, 132, grid)]
+    assert plan.critical_stages(grid) == plan.round_robin_stages(grid) == 132 // grid * 48
+    ck.reset_tail_split()
+    ck._count_tail_split(plan, grid)
+    assert ck.tail_split == {"launches": 0, "stages_saved": 0}
+
+
+def test_an_authentication_saves_a_sixth_of_its_stages():
+    """One authentication's calls at the benchmark's TFHE v1.x lattice on
+    132 SMs: every launch ends in a partial wave, and the slowest block's
+    stages a step, summed over the calls, fall from 46,904 (round-robin at
+    its split) to 38,917; calls of 1 to 128 rows from 16 stages to 12,
+    calls of 256 rows not at all."""
+    assert sum(AUTH_CALL_ROWS.values()) == 2351
+    assert sum(B * n for B, n in AUTH_CALL_ROWS.items()) == 216176
+    ck.reset_tail_split()
+    before = after = 0
+    for B, calls in AUTH_CALL_ROWS.items():
+        plan = ck.tile_plan(B, TFHE128, "blind_rotate_gen_full", 132)
+        round_robin = dataclasses.replace(
+            plan, split=ck.round_robin_split(plan.tiles, plan.blocks, 132))
+        pair = (round_robin.round_robin_stages(132), plan.critical_stages(132))
+        before += calls * pair[0]
+        after += calls * pair[1]
+        if B <= 128:
+            assert pair == (16, 12)
+        if B == 256:
+            assert pair == (24, 24)
+        for _ in range(calls):
+            ck._count_tail_split(plan, 132)
+    assert (before, after) == (46904, 38917)
+    assert ck.tail_split == {"launches": 2351, "stages_saved": 46904 - 38917}
+    ck.reset_tail_split()
+    assert ck.tail_split == {"launches": 0, "stages_saved": 0}
 
 
 @pytest.mark.parametrize("name", sorted(n for n, p in CONFIGS.items() if not p.w_streaming))
@@ -156,6 +263,29 @@ def product(kernel, p, d, key):
     return poly.extprod_toeplitz_i8(d, key, p.limb_plan)
 
 
+def piece_delta(kernel, p, digits, key, plan, item, first, end):
+    """The recombined delta of stages [first, end) of work item `item` alone
+    (one row and column tile, so the item is split `item % split`): stage s
+    is 128 contraction bytes, stage s % depth of the item's contraction
+    block s // depth; the generator kernels read a digit polynomial in
+    reversed coefficient order (``gen_rotation.cuh``), the others in natural
+    order."""
+    G = (p.k + 1) * p.l
+    K, U, _ = poly.amat_geometry(p.N, p.amat_block)
+    blocks = plan.blocks_of(item % plan.split)
+    mask = torch.zeros((G, p.N), dtype=torch.bool)
+    for s in range(first, end):
+        b, lo = blocks[s // plan.depth], s % plan.depth * ck.BK_BYTES
+        if kernel == "fused_blind_rotate":
+            g, u = divmod(b, U)
+            mask[g, u * K + lo:u * K + lo + ck.BK_BYTES] = True
+        elif kernel in ("cmux_step_gen", "blind_rotate_gen_full"):
+            mask[b, p.N - lo - ck.BK_BYTES:p.N - lo] = True
+        else:
+            mask[b, lo:lo + ck.BK_BYTES] = True
+    return product(kernel, p, torch.where(mask, digits, torch.zeros_like(digits)), key)
+
+
 def split_delta(kernel, p, digits, key, plan, sp):
     """The recombined delta of split `sp` alone: the digits outside its
     blocks set to zero, then the plain external product."""
@@ -174,7 +304,9 @@ def split_delta(kernel, p, digits, key, plan, sp):
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_split_deltas_sum_to_the_unsplit_step(name):
     """For every split the plan can take, the per-split deltas summed with
-    int32 wraparound equal the unsplit product; acc plus that sum equals
+    int32 wraparound equal the unsplit product, and so do the deltas of the
+    pieces that the walk by stage gives grids of 3 and 5 blocks (cuts inside
+    an item, and inside a digit polynomial where N > 128); acc plus that sum equals
     one step of the Pallas kernel in interpret mode (the whole rotation cut
     to one step, or cmux_step_gen or cmux_step on the same starting
     accumulator), and the sum alone equals extprod_recombine on the same
@@ -214,11 +346,16 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
                                     interpret=True)
     whole = product(kernel, p, digits, key[0])
     blocks = ck.contraction_blocks(p, kernel)
+    depth = ck.tile_plan(BATCH, p, kernel, 132).depth
     for split in (s for s in range(1, blocks + 1) if blocks % s == 0):
-        plan = ck.TilePlan(split, blocks, 1)
+        plan = ck.TilePlan(split, blocks, 1, depth)
         total = sum(split_delta(kernel, p, digits, key[0], plan, sp).to(torch.int64)
                     for sp in range(split))
         np.testing.assert_array_equal(wrap_i32(total).numpy(), whole.numpy())
+        for grid in (3, 5):
+            total = sum(piece_delta(kernel, p, digits, key[0], plan, *piece).to(torch.int64)
+                        for b in range(grid) for piece in plan.pieces(b, grid))
+            np.testing.assert_array_equal(wrap_i32(total).numpy(), whole.numpy())
     if kernel == "extprod_recombine":
         step = whole
     else:

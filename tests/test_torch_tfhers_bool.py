@@ -201,11 +201,12 @@ def test_every_call_of_the_authentication_is_bit_exact(authentication, keyset):
 
 @pytest.mark.parametrize("B,split", [(92, 9), (8192, 1)])
 def test_the_tile_plan_splits_g9_by_a_divisor(B, split):
-    """G = 9 digit polynomials: 92 rows (24 tiles) take every polynomial as
-    its own split, 8,192 rows (1,536 tiles) fill 132 SMs unsplit."""
+    """G = 9 digit polynomials: round-robin would take every polynomial as
+    its own split at 92 rows (24 tiles) and none at 8,192 rows (1,536
+    tiles) on 132 SMs; kernel 1 walks by stage and is unsplit at both."""
     plan = ck.tile_plan(B, TFHERS_BOOL_GEN, "cmux_step_gen", 132)
-    assert plan.blocks == 9 and 9 % plan.split == 0
-    assert plan.split == split
+    assert plan.blocks == 9 and plan.split == 1
+    assert ck.round_robin_split(plan.tiles, plan.blocks, 132) == split
     assert plan.tiles == -(-B // 128) * 3 * 8
 
 
