@@ -16,7 +16,9 @@
 // key (36-43 MB, which here streams from L2); an SM has 227 KB, so the
 // skeleton is whole_rotation.cuh's, and each stage's weight tile is
 // expanded into the ring from the item's generator rows in shared memory
-// (gen_rotation.cuh, shared with cmux_step_gen.cu).
+// (gen_rotation.cuh, shared with cmux_step_gen.cu).  A step's work items are
+// walked by stage: whole waves, then the last partial wave cut evenly over
+// the grid, each stage once and no split of the contraction.
 
 #include "gen_rotation.cuh"
 
@@ -39,15 +41,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 // The whole blind rotation in one cooperative launch: acc (B, (k+1)*N) int32
 // is written (not read) as [0 | X^amt[0] * mu], then n_steps CMUX steps run on
 // it.  amt is (n_steps+1, B) int32, vv is (n_steps, G, C, 2N) int8, digits is
-// (B, G*N) int8 scratch, grid_bar one zeroed uint32.  `split` must divide
-// G.  Requires N % 128 == 0.  Returns the first CUDA error (0 on success).
+// (B, G*N) int8 scratch, grid_bar one zeroed uint32.  Requires
+// N % 128 == 0.  Returns the first CUDA error (0 on success).
 extern "C" int peba1_blind_rotate_gen_full(void* acc, const void* amt, const void* vv,
                                            void* digits, void* grid_bar, int B, int n_steps,
                                            int N, int k, int l, int bgbit,
                                            unsigned int offset, int mask_limbs,
-                                           int body_limbs, int split, unsigned int mu,
-                                           void* stream) {
-  const Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, split, 0, mu};
+                                           int body_limbs, unsigned int mu, void* stream) {
+  const Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, 1, 0, mu};
   return launch_gen_rotation(blind_rotate_gen_full_kernel, acc, amt, vv, digits, grid_bar, a,
                              stream);
 }

@@ -18,8 +18,9 @@
 // set-up: all S steps of a call in one cooperative launch on
 // whole_rotation.cuh's skeleton (a digit phase, a grid barrier, a wgmma
 // GEMM phase fed by a producer warpgroup that expands the generator into a
-// shared-memory ring, a grid barrier), split-K over the G digit
-// polynomials as cuda_kernels.tile_plan picks it (gen_rotation.cuh).
+// shared-memory ring, a grid barrier), a step's work items walked by stage
+// (gen_rotation.cuh): whole waves, then the last partial wave cut evenly
+// over the grid, each stage once and no split of the contraction.
 //
 // Aliasing: acc is updated in place, and no acc element of a step is
 // written before every digit of the step exists (the contract of
@@ -44,12 +45,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // n_steps CMUX steps on acc (B, (k+1)*N) int32, in place, in one cooperative
 // launch.  amt is (n_steps, B) int32, vv is (n_steps, G, C, 2N) int8, digits
-// is (B, G*N) int8 scratch, grid_bar one zeroed uint32.  `split` must divide
-// G.  Requires N % 128 == 0.  Returns the first CUDA error (0 on success).
+// is (B, G*N) int8 scratch, grid_bar one zeroed uint32.  Requires
+// N % 128 == 0.  Returns the first CUDA error (0 on success).
 extern "C" int peba1_cmux_step_gen(void* acc, const void* amt, const void* vv, void* digits,
                                    void* grid_bar, int B, int n_steps, int N, int k, int l,
                                    int bgbit, unsigned int offset, int mask_limbs,
-                                   int body_limbs, int split, void* stream) {
-  const Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, split, 0, 0u};
+                                   int body_limbs, void* stream) {
+  const Args a{B, n_steps, N, k, l, bgbit, offset, mask_limbs, body_limbs, 0, 1, 0, 0u};
   return launch_gen_rotation(cmux_step_gen_kernel, acc, amt, vv, digits, grid_bar, a, stream);
 }

@@ -9,7 +9,7 @@
 // Per CMUX step: a digit phase over every (row, polynomial) pair, a grid
 // barrier, a GEMM phase over every work item, a second grid barrier.  A work
 // item is BM = 128 batch rows x one output polynomial o x 64 coefficients x
-// one split of the contraction.
+// the whole contraction in kernels 1 and 2, one split of it in kernels 4-6.
 //
 // GEMM phase, warp-specialized (no __syncthreads between the roles):
 //   * warpgroup 2, the producer, fills a ring of shared-memory stages.  A
@@ -26,9 +26,9 @@
 // m64n256 s32 accumulator is 128 registers a thread); each kernel sets the
 // producer's share.
 //
-// Split-K: an item covers 1/S of the contraction (Python's
-// cuda_kernels.tile_plan picks S from the batch, the shapes and the SM
-// count).  Each split adds its recombined delta into acc with a red; the
+// Split-K, kernels 4-6 only: an item covers 1/S of the contraction
+// (Python's cuda_kernels.tile_plan picks S from the batch, the shapes and the
+// SM count).  Each split adds its recombined delta into acc with a red; the
 // recombination is a sum mod 2^32, so the result is bit-equal whatever the
 // order in which the adds land.
 //
@@ -38,8 +38,9 @@
 // more.  Kernels 1 and 2 walk by stage (consume_step_by_stage): the full
 // waves round-robin as before, then the U mod W items left as one run of
 // stages cut evenly over the W blocks (tail_range), a step lasting
-// floor(U/W) * P + ceil((U mod W) * P / W) stages for items of P stages,
-// whatever the split; tile_plan gives them split 1, the fewest pieces.  A
+// floor(U/W) * P + ceil((U mod W) * P / W) stages for items of P stages.
+// That walk covers each stage once and fills the grid at every batch, so
+// kernels 1 and 2 take no split (their entry points set split = 1).  A
 // piece of an item adds a delta over a subset of the item's terms, so its
 // int32 sums stay in the same bound and the result is bit-equal, as for
 // split-K.
@@ -75,7 +76,7 @@ struct Args {
   uint32_t offset;
   int mask_limbs, body_limbs;
   int K;        // A-matrix fine block (kernel 6); 0 in kernels 1 and 2
-  int split;    // S: splits of the contraction
+  int split;    // S: splits of the contraction (kernels 4-6; 1 in kernels 1 and 2)
   int stages;   // ring depth
   uint32_t mu;
   // The walk by stage (kernels 1 and 2; 0 elsewhere), set by the launcher

@@ -20,9 +20,10 @@ of the same name:
 
 Design notes are in the sources.  Every kernel but `rotate_decompose` runs on
 the skeleton of ``csrc/whole_rotation.cuh`` (wgmma on a TMA-fed
-shared-memory ring, split-K; `cmux_step_gen` and `blind_rotate_gen_full`
-through ``csrc/gen_rotation.cuh``) and takes its contraction split from
-`tile_plan`; `rotate_decompose` borrows only the header's mbarrier helpers.
+shared-memory ring; `cmux_step_gen` and `blind_rotate_gen_full` through
+``csrc/gen_rotation.cuh``, which walk a step's work items by stage and take
+no split; the other three split the contraction as `tile_plan` says);
+`rotate_decompose` borrows only the header's mbarrier helpers.
 On a CPU tensor a wrapper runs its plain twin (``*_plain``, the same
 signature and result in plain PyTorch).  On a CUDA tensor it launches the
 kernel or raises; it never falls back.  Every ``csrc/*.cu`` is compiled
@@ -30,13 +31,8 @@ with ``nvcc`` for ``sm_90a`` at first use into its own shared library, all
 at once, under the package's ``build/`` directory (keyed by one hash of
 every source and the flags; git ignores it), and bound with ctypes.
 ``launches`` counts the CUDA kernel launches each wrapper makes: one per
-call for every wrapper.  ``tail_split`` counts the launches of
-`cmux_step_gen` and `blind_rotate_gen_full` whose steps end in a partial
-wave of work items, which those kernels spread over the grid by stage
-(`TilePlan.pieces`), and the stages a step this saves on the slowest block
-(`TilePlan.critical_stages`), summed over those launches.  Each wrapper call
-is the span ``peba1.kernel.<wrapper>`` in a profiler's trace
-(``utils/logging``).
+call for every wrapper.  Each wrapper call is the span
+``peba1.kernel.<wrapper>`` in a profiler's trace (``utils/logging``).
 """
 
 from __future__ import annotations
@@ -66,9 +62,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # C entry point -> (library, argument types); every one returns a CUDA error.
 _ENTRIES = {
-    "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
+    "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
-                                    [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _U, _P]),
+                                    [_P] * 5 + [_I] * 6 + [_U, _I, _I, _U, _P]),
     "peba1_rotate_decompose": ("rotate_decompose", [_P] * 3 + [_I] * 5 + [_U, _I, _I, _I, _P]),
     "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 7 + [_P]),
     "peba1_cmux_step": ("cmux_step", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
@@ -78,18 +74,12 @@ _ENTRIES = {
 
 launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
             "extprod_recombine": 0, "cmux_step": 0, "fused_blind_rotate": 0}
-tail_split = {"launches": 0, "stages_saved": 0}
 _fns: dict = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def reset_tail_split() -> None:
-    for name in tail_split:
-        tail_split[name] = 0
 
 
 def _nvcc() -> str:
@@ -305,27 +295,16 @@ def tile_plan(B: int, params: TfheParams, kernel: str, sm_count: int,
     fill the card at the protocol's small batches by split-K
     (`round_robin_split`).  The kernels of `BY_STAGE` spread the last
     partial wave of items over the grid by stage, so a step lasts
-    ceil(items x stages / SMs) stages on its slowest block whatever the
-    split; they take split 1, since a split only adds pieces, each drained
-    and added into acc on its own (PERF.md §6, PR 19, has the split against
-    the step time on the H100)."""
+    ceil(items x stages / SMs) stages on its slowest block; they take no
+    split, and their plan, the mirror of that walk, has split 1 (a split
+    would only add pieces, each drained and added into acc on its own;
+    PERF.md §6 has the split against the step time on the H100)."""
     p = params
     tiles = -(-B // BM_ROWS) * (p.k + 1) * (p.N // BN_COLS)
     blocks = contraction_blocks(p, kernel, K)
     depth = (p.k + 1) * p.l * p.N // blocks // BK_BYTES    # G*N contraction bytes
     split = 1 if kernel in BY_STAGE else round_robin_split(tiles, blocks, sm_count)
     return TilePlan(split, blocks, tiles, depth)
-
-
-def _count_tail_split(plan: TilePlan, grid: int) -> None:
-    """`tail_split` after a launch of a `BY_STAGE` kernel on `grid` blocks:
-    a launch whose steps end in a partial wave, and the stages a step saved
-    against the round-robin walk at `round_robin_split`."""
-    round_robin = dataclasses.replace(
-        plan, split=round_robin_split(plan.tiles, plan.blocks, grid))
-    tail_split["launches"] += int(plan.items % grid != 0)
-    tail_split["stages_saved"] += (round_robin.round_robin_stages(grid)
-                                   - plan.critical_stages(grid))
 
 
 _sm_counts: "dict[int, int]" = {}
@@ -342,6 +321,20 @@ def _sm_count(device: torch.device) -> int:
 def _check_rotation_shapes(kernel: str, p: TfheParams) -> None:
     if p.N % BK_BYTES:
         raise ValueError(f"{kernel} kernel needs N % {BK_BYTES} == 0, got N={p.N}")
+
+
+def _launch_rotation(kernel: str, acc: torch.Tensor, amt: torch.Tensor, key: torch.Tensor,
+                     p: TfheParams, steps: int, *tail) -> None:
+    """Launch ``peba1_<kernel>``, a kernel on the whole-rotation skeleton, on
+    acc's device: acc (B, (k+1)*N), amt, the key, a (B, G*N) digits scratch
+    and a zeroed grid barrier, then B, `steps`, the step sizes
+    (`_step_args`) and the kernel's own `tail` arguments."""
+    B, device = acc.shape[0], acc.device
+    digits = torch.empty((B, (p.k + 1) * p.l * p.N), dtype=torch.int8, device=device)
+    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
+    _launch("peba1_" + kernel, device, acc.data_ptr(), amt.data_ptr(), key.data_ptr(),
+            digits.data_ptr(), grid_bar.data_ptr(), B, steps, *_step_args(p), *tail)
+    launches[kernel] += 1
 
 
 # --- cmux_step_gen ---------------------------------------------------------
@@ -368,16 +361,7 @@ def cmux_step_gen(acc_flat: torch.Tensor, amt: torch.Tensor, vv: torch.Tensor,
     _check_rotation_shapes("cmux_step_gen", p)
     if B == 0 or S == 0:
         return acc_flat
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
-    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    sms = _sm_count(device)
-    plan = tile_plan(B, p, "cmux_step_gen", sms)
-    N, k, l, bgbit, off, ml, bl = _step_args(p)
-    _launch("peba1_cmux_step_gen", device, acc_flat.data_ptr(), amt.data_ptr(),
-            vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S, N, k, l, bgbit,
-            off, ml, bl, plan.split)
-    launches["cmux_step_gen"] += 1
-    _count_tail_split(plan, sms)
+    _launch_rotation("cmux_step_gen", acc_flat, amt, vv, p, S)
     return acc_flat
 
 
@@ -419,16 +403,7 @@ def blind_rotate_gen_full(amt: torch.Tensor, vv: torch.Tensor, mu: int,
     acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
     if B == 0:
         return acc
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
-    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    sms = _sm_count(device)
-    plan = tile_plan(B, p, "blind_rotate_gen_full", sms)
-    N, k, l, bgbit, off, ml, bl = _step_args(p)
-    _launch("peba1_blind_rotate_gen_full", device, acc.data_ptr(), amt.data_ptr(),
-            vv.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S1 - 1, N, k, l,
-            bgbit, off, ml, bl, plan.split, mu & 0xFFFFFFFF)
-    launches["blind_rotate_gen_full"] += 1
-    _count_tail_split(plan, sms)
+    _launch_rotation("blind_rotate_gen_full", acc, amt, vv, p, S1 - 1, mu & 0xFFFFFFFF)
     return acc
 
 
@@ -609,14 +584,8 @@ def cmux_step(acc_flat: torch.Tensor, amt: torch.Tensor, w: torch.Tensor,
     _check_rotation_shapes("cmux_step", p)
     if B == 0 or S == 0:
         return acc_flat
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
-    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    plan = tile_plan(B, p, "cmux_step", _sm_count(device))
-    N, k, l, bgbit, off, ml, bl = _step_args(p)
-    _launch("peba1_cmux_step", device, acc_flat.data_ptr(), amt.data_ptr(), w.data_ptr(),
-            digits.data_ptr(), grid_bar.data_ptr(), B, S, N, k, l, bgbit, off, ml, bl,
-            plan.split)
-    launches["cmux_step"] += 1
+    split = tile_plan(B, p, "cmux_step", _sm_count(device)).split
+    _launch_rotation("cmux_step", acc_flat, amt, w, p, S, split)
     return acc_flat
 
 
@@ -662,14 +631,9 @@ def fused_blind_rotate(amt: torch.Tensor, amat: torch.Tensor, mu: int,
     acc = torch.empty((B, k1 * p.N), dtype=torch.int32, device=device)
     if B == 0:
         return acc
-    digits = torch.empty((B, G * p.N), dtype=torch.int8, device=device)
-    grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    plan = tile_plan(B, p, "fused_blind_rotate", _sm_count(device), K)
-    N, k, l, bgbit, off, ml, bl = _step_args(p)
-    _launch("peba1_fused_blind_rotate", device, acc.data_ptr(), amt.data_ptr(),
-            amat.data_ptr(), digits.data_ptr(), grid_bar.data_ptr(), B, S1 - 1, N, k, l,
-            bgbit, off, ml, bl, K, plan.split, mu & 0xFFFFFFFF)
-    launches["fused_blind_rotate"] += 1
+    split = tile_plan(B, p, "fused_blind_rotate", _sm_count(device), K).split
+    _launch_rotation("fused_blind_rotate", acc, amt, amat, p, S1 - 1, K, split,
+                     mu & 0xFFFFFFFF)
     return acc
 
 

@@ -166,16 +166,13 @@ def test_the_walk_by_stage_covers_each_stage_once(name, B, grid):
 @pytest.mark.parametrize("grid", [1, 2, 3, 12, 132])
 def test_a_whole_last_wave_is_walked_round_robin(grid):
     """U a multiple of the grid: no tail, every block its round-robin items
-    whole, and nothing counted as split or saved."""
+    whole, and the slowest block as long as under round-robin."""
     plan = ck.TilePlan(1, 6, 132, 8)                          # 132 items of 48 stages
     assert plan.items % grid == 0
     for b in range(grid):
         assert plan.tail_range(b, grid) == range(0, 0)
         assert plan.pieces(b, grid) == [(i, 0, 48) for i in range(b, 132, grid)]
     assert plan.critical_stages(grid) == plan.round_robin_stages(grid) == 132 // grid * 48
-    ck.reset_tail_split()
-    ck._count_tail_split(plan, grid)
-    assert ck.tail_split == {"launches": 0, "stages_saved": 0}
 
 
 def test_an_authentication_saves_a_sixth_of_its_stages():
@@ -186,7 +183,6 @@ def test_an_authentication_saves_a_sixth_of_its_stages():
     calls of 256 rows not at all."""
     assert sum(AUTH_CALL_ROWS.values()) == 2351
     assert sum(B * n for B, n in AUTH_CALL_ROWS.items()) == 216176
-    ck.reset_tail_split()
     before = after = 0
     for B, calls in AUTH_CALL_ROWS.items():
         plan = ck.tile_plan(B, TFHE128, "blind_rotate_gen_full", 132)
@@ -199,12 +195,7 @@ def test_an_authentication_saves_a_sixth_of_its_stages():
             assert pair == (16, 12)
         if B == 256:
             assert pair == (24, 24)
-        for _ in range(calls):
-            ck._count_tail_split(plan, 132)
     assert (before, after) == (46904, 38917)
-    assert ck.tail_split == {"launches": 2351, "stages_saved": 46904 - 38917}
-    ck.reset_tail_split()
-    assert ck.tail_split == {"launches": 0, "stages_saved": 0}
 
 
 @pytest.mark.parametrize("name", sorted(n for n, p in CONFIGS.items() if not p.w_streaming))
@@ -303,15 +294,16 @@ def split_delta(kernel, p, digits, key, plan, sp):
 
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_split_deltas_sum_to_the_unsplit_step(name):
-    """For every split the plan can take, the per-split deltas summed with
-    int32 wraparound equal the unsplit product, and so do the deltas of the
-    pieces that the walk by stage gives grids of 3 and 5 blocks (cuts inside
-    an item, and inside a digit polynomial where N > 128); acc plus that sum equals
-    one step of the Pallas kernel in interpret mode (the whole rotation cut
-    to one step, or cmux_step_gen or cmux_step on the same starting
-    accumulator), and the sum alone equals extprod_recombine on the same
-    digits.  The W kernels' key is one step of bk_w, built by each package
-    from the same generator."""
+    """For every split the kernel can take (every divisor of its blocks for
+    kernels 4-6, 1 for the kernels walked by stage), the per-split deltas
+    summed with int32 wraparound equal the unsplit product, and so do the
+    deltas of the pieces that the walk by stage gives grids of 3 and 5 blocks
+    (cuts inside an item, and inside a digit polynomial where N > 128); acc
+    plus that sum equals one step of the Pallas kernel in interpret mode (the
+    whole rotation cut to one step, or cmux_step_gen or cmux_step on the same
+    starting accumulator), and the sum alone equals extprod_recombine on the
+    same digits.  The W kernels' key is one step of bk_w, built by each
+    package from the same generator."""
     kernel, p = STEP_CASES[name]
     G, C = (p.k + 1) * p.l, sum(p.limb_plan)
     rng = np.random.default_rng(21)
@@ -347,7 +339,9 @@ def test_split_deltas_sum_to_the_unsplit_step(name):
     whole = product(kernel, p, digits, key[0])
     blocks = ck.contraction_blocks(p, kernel)
     depth = ck.tile_plan(BATCH, p, kernel, 132).depth
-    for split in (s for s in range(1, blocks + 1) if blocks % s == 0):
+    splits = (1,) if kernel in ck.BY_STAGE else [s for s in range(1, blocks + 1)
+                                                 if blocks % s == 0]
+    for split in splits:
         plan = ck.TilePlan(split, blocks, 1, depth)
         total = sum(split_delta(kernel, p, digits, key[0], plan, sp).to(torch.int64)
                     for sp in range(split))
