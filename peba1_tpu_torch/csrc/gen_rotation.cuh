@@ -3,7 +3,8 @@
 // blind_rotate_gen_full.cu (the whole rotation, acc set up in the kernel)
 // and cmux_step_gen.cu (S steps on an acc that comes in and is updated in
 // place).  Both run whole_rotation.cuh's skeleton; they differ only in
-// gen_rotation's INIT.
+// gen_rotation's INIT.  Their recording instances (*_phases.cu) compile the
+// same body with PHASES (below).
 //
 // Toeplitz direction: with the digits in reversed coefficient order
 // (k = N-1-t), the weight is W'[k, j] = vv[1+k+j], so the K-major bytes of
@@ -25,6 +26,101 @@
 
 namespace peba1 {
 namespace rot {
+
+// --- the record of a step's phases (the PHASES instance) --------------------
+//
+// The instance of kernels 1 and 2 compiled with PHASES (sources of their own,
+// blind_rotate_gen_full_phases.cu and cmux_step_gen_phases.cu, C entries
+// peba1_*_phases; only the tools launch it) stores, for each step of a window
+// [first, first + count) and each block, one record of REC_WORDS uint64
+// words per role: thread 0 (consumer warpgroup 0), thread 128 (consumer
+// warpgroup 1) and thread 256 (the producer), from word
+//   REC_HEADER + (((step - first) * grid + block) * REC_ROLES + role) * REC_WORDS.
+// Timer words (ns, %globaltimer, comparable across SMs) line the blocks up
+// against each other; the cycle words (the SM's clock) time what happens
+// inside one SM; nothing is stored per stage.  The header: the grid, the
+// window, the first REC_TICKS steps by which block 0's thread 0 saw the
+// timer advance, read in a loop after the last step, and the ns that
+// REC_TIMER_READS stamps take in a row, each a read of the timer and a store
+// that waits for it (what a stamp costs the thread).  Every word of the
+// header and of the window's records is written, so the buffer needs no
+// clearing.
+// step_phases.py mirrors these numbers (tests/test_torch_phases.py checks it).
+constexpr int REC_HEADER = 16;          // header words before the records
+constexpr int REC_TICKS = 12;           // timer steps in the header, from word 3
+constexpr int REC_TIMER_READS = 64;     // header word 15: ns of this many stamps in a row
+constexpr int REC_ROLES = 3;            // consumer warpgroups 0, 1; producer
+constexpr int REC_WORDS = 19;           // words of one record
+constexpr int REC_T_START = 0;          // timer: the step starts
+constexpr int REC_T_DIGITS = 1;         // timer: this thread's digit phase ends
+constexpr int REC_T_BAR1_ARRIVE = 2;    // timer, thread 0: the block arrives at barrier 1
+constexpr int REC_T_BAR1_SEEN = 3;      // timer, thread 0: it sees the last block's arrival
+constexpr int REC_T_BAR1_EXIT = 4;      // timer: this thread leaves barrier 1
+constexpr int REC_T_GEMM_END = 5;       // timer: this role's GEMM phase ends
+constexpr int REC_T_BAR2_ARRIVE = 6;    // timer, thread 0: as at barrier 1
+constexpr int REC_T_BAR2_SEEN = 7;
+constexpr int REC_T_BAR2_EXIT = 8;
+constexpr int REC_GEMM_CYCLES = 9;      // cycles from barrier 1's exit to the GEMM end
+constexpr int REC_FILL = 10;            // Phases::fill, then wait, wait2, work, last, issue
+constexpr int REC_WAIT = 11;
+constexpr int REC_WAIT2 = 12;
+constexpr int REC_WORK = 13;
+constexpr int REC_LAST = 14;
+constexpr int REC_ISSUE = 15;
+constexpr int REC_STAGES = 16;          // stages this role's walk ran in the step
+constexpr int REC_PIECES = 17;          // its pieces (consumers) or units (producer)
+constexpr int REC_TAG = 18;             // step << 32 | block << 8 | (role + 1)
+
+// The record window, a kernel parameter of the PHASES instance.
+struct PhaseRec {
+  uint64_t* rec;
+  int first, count;
+};
+
+// This thread's record of step s, or null: the step is outside the window,
+// or the thread is not the first of its warpgroup.
+__device__ __forceinline__ uint64_t* record_of(const PhaseRec& pr, int s) {
+  const int t = thread_idx(), i = s - pr.first;
+  if ((t & 127) != 0 || i < 0 || i >= pr.count) return nullptr;
+  return pr.rec + REC_HEADER +
+         (((size_t)i * gridDim.x + blockIdx.x) * REC_ROLES + (t >> 7)) * REC_WORDS;
+}
+
+__device__ __forceinline__ void stamp(uint64_t* rec, int word) {
+  if (rec) rec[word] = global_ns();
+}
+
+// After barrier 1 of a step: its start and its digit phase's end, read
+// before and stored only now (a store waits for its read, and the thread
+// had the barrier to wait at anyway), then the barrier's exit.
+__device__ __forceinline__ void record_bar1(uint64_t* rec, uint64_t t_start, uint64_t t_digits) {
+  if (!rec) return;
+  rec[REC_T_START] = t_start;
+  rec[REC_T_DIGITS] = t_digits;
+  rec[REC_T_BAR1_EXIT] = global_ns();
+}
+
+// The header: the grid, the window, the steps of the timer as block 0's
+// thread 0 sees it advance (its resolution), each at most 2^22 reads apart,
+// and the ns of REC_TIMER_READS stamps in a row.
+__device__ __forceinline__ void record_header(const PhaseRec& pr) {
+  if (blockIdx.x != 0 || thread_idx() != 0) return;
+  pr.rec[0] = gridDim.x;
+  pr.rec[1] = (uint64_t)pr.first;
+  pr.rec[2] = (uint64_t)pr.count;
+  volatile uint64_t* cost = pr.rec + 3 + REC_TICKS;
+  const uint64_t t0 = global_ns();
+  uint64_t t = t0;
+  for (int i = 0; i < REC_TIMER_READS; ++i) *cost = t = global_ns();
+  *cost = t - t0;
+  uint64_t prev = global_ns();
+  for (int i = 0; i < REC_TICKS; ++i) {
+    uint64_t now = prev;
+    for (int spin = 0; spin < (1 << 22) && now == prev; ++spin) now = global_ns();
+    pr.rec[3 + i] = now - prev;
+    prev = now;
+  }
+}
 
 // Registers a producer thread keeps (the consumers get (504 - 104) / 2 =
 // 200); at 88 kernel 2's producer spills with the walk by stage.
@@ -106,9 +202,12 @@ __device__ __forceinline__ Unit unit_at(int u, int per_split, const Args& a) {
 
 // The producer warpgroup in one step: every stage of the block's pieces.
 // The units run in order; each unit's generator windows are fetched into
-// one of two buffers while the unit before it is expanded.
+// one of two buffers while the unit before it is expanded.  With PHASES,
+// its waits and expansions are timed into *ph.
+template <bool PHASES = false>
 __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_map,
-                                             const int8_t* vv_s, uint32_t win, const Args& a) {
+                                             const int8_t* vv_s, uint32_t win, const Args& a,
+                                             Phases* ph = nullptr) {
   const int ptid = thread_idx() - 2 * 128;
   const int G = (a.k + 1) * a.l, C = a.k * a.mask_limbs + a.body_limbs;
   const int per_split = G / a.split;
@@ -123,25 +222,122 @@ __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_
   for (int unit = 0;; ++unit) {
     const Unit un = unit_at(unit, per_split, a);
     if (un.h0 >= un.h1) break;
+    if constexpr (PHASES) ph->walk += (un.h1 - un.h0) + (1u << WALK_PIECE);
     const Item it = item_at(un.idx, a);
     const int g = it.split * per_split + un.gl;
+    [[maybe_unused]] uint32_t c0 = 0;
+    if constexpr (PHASES) c0 = sm_clock();
     asm volatile("cp.async.wait_all;" ::: "memory");
     producer_sync();  // this unit's windows have landed; the other buffer is free
+    if constexpr (PHASES) {
+      const uint32_t c1 = sm_clock();
+      ph->wait2 += c1 - c0;
+      if (ph->last == 0) ph->last = c1 - ph->start;
+    }
     const Unit next = unit_at(unit + 1, per_split, a);
     if (next.h0 < next.h1) fetch(next, unit + 1);
     const uint32_t w = win + (unit & 1) * 4 * window_bytes(a.N);
     for (int h = un.h0; h < un.h1; ++h) {
+      if constexpr (PHASES) c0 = sm_clock();
       r.wait_empty();
+      if constexpr (PHASES) {
+        const uint32_t c1 = sm_clock();
+        ph->wait += c1 - c0;
+        c0 = c1;
+      }
       if (ptid == 0) {
         mbar_expect_tx(r.full(r.stage), A_BYTES);
         tma_load_2d(r.a_tile(), digits_map, r.full(r.stage), g * a.N + h * BK, it.m0);
       }
+      if constexpr (PHASES) {
+        const uint32_t c1 = sm_clock();
+        ph->issue += c1 - c0;
+        c0 = c1;
+      }
       expand_tile(r.b_tile(), w, it.nl, h, a.N, ptid);
       fence_proxy_async_shared();  // the generic stores, before wgmma reads them
+      if constexpr (PHASES) {
+        const uint32_t c1 = sm_clock();
+        ph->work += c1 - c0;
+        if (ph->fill == 0) ph->fill = c1 - ph->start;
+      }
       mbar_arrive(r.full(r.stage));
       r.advance();
     }
   }
+}
+
+// The end of a recorded step's GEMM phase for this role: the timer, the
+// cycle totals, and the stages and pieces (or units) its walk ran.
+__device__ __forceinline__ void record_gemm(uint64_t* rec, const Phases& ph, int s) {
+  const uint32_t cycles = sm_clock() - ph.start;
+  const uint64_t end = global_ns();  // stored last, once the read has landed
+  rec[REC_GEMM_CYCLES] = cycles;
+  rec[REC_FILL] = ph.fill;
+  rec[REC_WAIT] = ph.wait;
+  rec[REC_WAIT2] = ph.wait2;
+  rec[REC_WORK] = ph.work;
+  rec[REC_LAST] = ph.last;
+  rec[REC_ISSUE] = ph.issue;
+  rec[REC_STAGES] = ph.walk & ((1u << WALK_PIECE) - 1);
+  rec[REC_PIECES] = ph.walk >> WALK_PIECE;
+  rec[REC_TAG] =
+      (uint64_t)s << 32 | (uint64_t)blockIdx.x << 8 | (uint64_t)((thread_idx() >> 7) + 1);
+  rec[REC_T_GEMM_END] = end;
+}
+
+// The recording instance's steps (PHASES): gen_rotation's loops after its
+// set-up, with each step of pr's window recorded (see REC_*); the same
+// digits, products and adds in the same order.
+template <bool INIT>
+__device__ __forceinline__ void record_steps(Ring& r, const CUtensorMap* digits_map,
+                                             uint32_t* acc, const int32_t* amt,
+                                             const int8_t* vv, int8_t* digits,
+                                             unsigned int* grid_bar, const Args& a,
+                                             const PhaseRec& pr, int n_st, size_t vv_step,
+                                             unsigned int& bar) {
+  uint64_t* rec = nullptr;
+  uint64_t t_start = 0, t_digits = 0;
+  Phases ph;
+  if (warpgroup() == 2) {
+    producer_registers<PRODUCER_REGS>();
+    if constexpr (INIT) grid_sync(grid_bar, bar);  // the initial acc exists
+    for (int s = 0; s < a.n_steps; ++s) {
+      rec = record_of(pr, s);
+      if (rec) t_start = global_ns();
+      digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
+      if (rec) t_digits = global_ns();
+      // every digit of the step exists
+      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR1_ARRIVE : nullptr);
+      fence_proxy_async_global();
+      record_bar1(rec, t_start, t_digits);
+      ph = Phases{};
+      ph.start = sm_clock();
+      produce_step<true>(r, digits_map, vv + s * vv_step, r.extra, a, &ph);
+      if (rec) record_gemm(rec, ph, s);
+      // every acc add of the step has landed
+      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR2_ARRIVE : nullptr);
+      stamp(rec, REC_T_BAR2_EXIT);
+    }
+  } else {  // consumer warpgroups 0 and 1
+    consumer_registers<PRODUCER_REGS>();
+    if constexpr (INIT) grid_sync(grid_bar, bar);
+    for (int s = 0; s < a.n_steps; ++s) {
+      rec = record_of(pr, s);
+      if (rec) t_start = global_ns();
+      digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
+      if (rec) t_digits = global_ns();
+      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR1_ARRIVE : nullptr);
+      record_bar1(rec, t_start, t_digits);
+      ph = Phases{};
+      ph.start = sm_clock();
+      consume_step_by_stage<true>(r, acc, n_st, a, &ph);
+      if (rec) record_gemm(rec, ph, s);
+      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR2_ARRIVE : nullptr);
+      stamp(rec, REC_T_BAR2_EXIT);
+    }
+  }
+  record_header(pr);
 }
 
 // The body of both kernels.  INIT (kernel 2): amt is (n_steps+1, B), row 0
@@ -152,11 +348,14 @@ __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_
 // only after the grid barrier that ends step s-1's adds, and its GEMM phase
 // adds into acc only after the grid barrier that ends its digit phase: no
 // digit of a step is read after an acc element of that step is written.
-template <bool INIT>
+// PHASES (the recording instance, *pr its window): the steps of
+// record_steps.  The default instance's code holds nothing of the recorder:
+// a trace of it there (a Phases on the stack) changed kernel 2's machine code.
+template <bool INIT, bool PHASES = false>
 __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint32_t* acc,
                                              const int32_t* amt, const int8_t* vv,
                                              int8_t* digits, unsigned int* grid_bar,
-                                             const Args& a) {
+                                             const Args& a, const PhaseRec* pr = nullptr) {
   extern __shared__ uint8_t smem[];
   Ring r = make_ring(smem, a.stages, 128);  // every producer thread arrives
   __syncthreads();
@@ -165,6 +364,11 @@ __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint
   const int n_st = G / a.split * (a.N / BK);
   const size_t vv_step = (size_t)G * C * 2 * a.N;
   unsigned int bar = 0;
+  if constexpr (PHASES) {
+    record_steps<INIT>(r, digits_map, acc, amt, vv, digits, grid_bar, a, *pr, n_st, vv_step,
+                       bar);
+    return;
+  }
   if (warpgroup() == 2) {
     producer_registers<PRODUCER_REGS>();
     if constexpr (INIT) grid_sync(grid_bar, bar);  // the initial acc exists
@@ -188,12 +392,15 @@ __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint
 }
 
 // Launches `kernel` (a gen_rotation<INIT> wrapper taking digits_map, acc,
-// amt, vv, digits, grid_bar, a) cooperatively; a.stages and the walk's
-// shares are set here, a.split must be 1.  Requires N % 128 == 0.  Returns
-// the first CUDA error (0 on success).
+// amt, vv, digits, grid_bar, a, and in the PHASES instance a PhaseRec)
+// cooperatively; a.stages and the walk's shares are set here, a.split must
+// be 1.  Requires N % 128 == 0.  With `pr`, its buffer must hold the records
+// of `rec_blocks` blocks or more.  Returns the first CUDA error (0 on
+// success).
 template <typename Kernel>
 inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const void* vv,
-                               void* digits, void* grid_bar, Args a, void* stream) {
+                               void* digits, void* grid_bar, Args a, void* stream,
+                               const PhaseRec* pr = nullptr, int rec_blocks = 0) {
   const int G = (a.k + 1) * a.l;
   if (a.N % BK) return (int)cudaErrorInvalidValue;
   const int extra = 2 * 4 * window_bytes(a.N);  // two buffers of up to four limbs
@@ -203,6 +410,7 @@ inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const 
   int blocks = 0;
   cudaError_t err = resident_blocks(kernel, smem, &blocks);
   if (err != cudaSuccess) return (int)err;
+  if (pr && blocks > rec_blocks) return (int)cudaErrorInvalidValue;
   // The walk by stage on this grid: U items of P stages a step.
   const int U = (a.B + BM - 1) / BM * (a.k + 1) * (a.N / BN);  // items_per_step
   const int tail = U % blocks * (G * (a.N / BK));
@@ -217,7 +425,8 @@ inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const 
   const int8_t* vv_p = static_cast<const int8_t*>(vv);
   int8_t* digits_p = static_cast<int8_t*>(digits);
   unsigned int* bar_p = static_cast<unsigned int*>(grid_bar);
-  void* args[] = {&digits_map, &acc_p, &amt_p, &vv_p, &digits_p, &bar_p, &a};
+  PhaseRec rec = pr ? *pr : PhaseRec{};
+  void* args[] = {&digits_map, &acc_p, &amt_p, &vv_p, &digits_p, &bar_p, &a, &rec};
   return (int)launch_cooperative_on(kernel, blocks, smem, args,
                                     static_cast<cudaStream_t>(stream));
 }

@@ -230,6 +230,41 @@ __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync 1, 128;" ::: "memory");
 }
 
+// --- the phases instance of kernels 1 and 2 ----------------------------------
+
+// The SM's cycle counter (%clock, the low half of clock64: a step's cycles
+// fit in 32 bits) and the card's nanosecond timer, which every SM reads
+// alike.  Only the instance of kernels 1 and 2 that records a step's phases
+// (gen_rotation.cuh, PHASES) reads them; every other instance compiles
+// without them.
+__device__ __forceinline__ uint32_t sm_clock() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(c)::"memory");
+  return c;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
+  return t;
+}
+
+// A role's cycle totals over one step's GEMM phase, kept in registers.
+// start: the clock at barrier 1's exit; fill: from there to the first stage
+// (a consumer's first full wait ends, or the producer's first arrival on
+// full).  Producer: wait (on empty), wait2 (cp.async.wait_all and the
+// warpgroup's barrier after it), work (expand_tile and its proxy fence),
+// issue (the digit tile's TMA, which thread 256 issues), last (from
+// barrier 1's exit until its first unit's windows have landed).  Consumers:
+// wait (on full, after the first stage), wait2 (wgmma_wait), work
+// (add_tile), issue (the stage's wgmma: descriptors, fence, four wgmma,
+// commit), last (the step's last add_tile).  walk: the stages run, plus the
+// pieces (or the producer's units) << WALK_PIECE.
+constexpr int WALK_PIECE = 20;
+struct Phases {
+  uint32_t start = 0, fill = 0, wait = 0, wait2 = 0, work = 0, issue = 0, last = 0, walk = 0;
+};
+
 // D (+)= A x B over 32 contraction bytes: A 64 rows, B NL*64 columns, both
 // K-major in shared memory; D is int32 in the wgmma accumulator layout
 // (register 4*c + 2*i + e holds row 16*warp + lane/4 + 8i, column
@@ -350,11 +385,19 @@ __device__ __forceinline__ void wgmma_s8<4>(int32_t (&d)[128], uint64_t da, uint
 // and waits with acquire loads (the block's writes, ordered before it by
 // the block barrier, are released with it; no full fence is needed).
 // barrier.sync 0 (not the aligned __syncthreads) because the producer and
-// consumers call it from different branches.
-__device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int& target) {
+// consumers call it from different branches.  With PHASES and `stamps`,
+// thread 0 reads the timer as the block arrives (once every thread has) and
+// as it sees the last block's arrival, and stores them in stamps[0] and
+// stamps[1] after the barrier, so that no store waits on a read in the
+// barrier's path; another thread with `stamps` stores zeros there.
+template <bool PHASES = false>
+__device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int& target,
+                                          uint64_t* stamps = nullptr) {
+  [[maybe_unused]] uint64_t arrive = 0, seen_at = 0;
   target += gridDim.x;
   asm volatile("barrier.sync 0;" ::: "memory");
   if (thread_idx() == 0) {
+    if constexpr (PHASES) arrive = global_ns();
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
     unsigned int seen;
     SpinGuard guard;
@@ -363,8 +406,14 @@ __device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int& t
       if (seen >= target) break;
       guard.tick();
     }
+    if constexpr (PHASES) seen_at = global_ns();
   }
   asm volatile("barrier.sync 0;" ::: "memory");
+  if constexpr (PHASES)
+    if (stamps) {
+      stamps[0] = arrive;
+      stamps[1] = seen_at;
+    }
 }
 
 // --- phases ----------------------------------------------------------------
@@ -554,11 +603,21 @@ __device__ __forceinline__ void release(Ring& r, int stage) {
 // flight, each stage freed once the group after it is issued.  Every
 // warpgroup computes, even one whose rows lie past the batch (their digits
 // read as zeros): a wgmma under a branch is serialized by the compiler.
-template <int NL>
-__device__ __forceinline__ void consume(Ring& r, int n_st, int wg, int32_t (&d)[32 * NL]) {
+// With PHASES, the waits are timed into *ph.
+template <int NL, bool PHASES = false>
+__device__ __forceinline__ void consume(Ring& r, int n_st, int wg, int32_t (&d)[32 * NL],
+                                        Phases* ph = nullptr) {
   int prev = -1;
+  [[maybe_unused]] uint32_t c0 = 0;
   for (int t = 0; t < n_st; ++t) {
+    if constexpr (PHASES) c0 = sm_clock();
     mbar_wait(r.full(r.stage), r.phase);
+    if constexpr (PHASES) {
+      const uint32_t c1 = sm_clock();
+      if (ph->fill == 0) ph->fill = c1 - ph->start;
+      else ph->wait += c1 - c0;
+      c0 = c1;
+    }
     const uint64_t da = smem_desc(r.a_tile() + wg * (A_BYTES / 2));
     const uint64_t db = smem_desc(r.b_tile());
     wgmma_fence();
@@ -566,12 +625,20 @@ __device__ __forceinline__ void consume(Ring& r, int n_st, int wg, int32_t (&d)[
     for (int kk = 0; kk < BK / 32; ++kk)
       wgmma_s8<NL>(d, da + 2 * kk, db + 2 * kk, (t | kk) != 0);
     wgmma_commit();
+    if constexpr (PHASES) {
+      const uint32_t c1 = sm_clock();
+      ph->issue += c1 - c0;
+      c0 = c1;
+    }
     wgmma_wait<1>();
+    if constexpr (PHASES) ph->wait2 += sm_clock() - c0;
     if (prev >= 0) release(r, prev);
     prev = r.stage;
     r.advance();
   }
+  if constexpr (PHASES) c0 = sm_clock();
   wgmma_wait<0>();
+  if constexpr (PHASES) ph->wait2 += sm_clock() - c0;
   release(r, prev);
 }
 
@@ -603,23 +670,30 @@ __device__ __forceinline__ void add_tile(uint32_t* acc, const int32_t (&d)[32 * 
 }
 
 // A consumer warpgroup's work item with its limb count as a template argument.
-template <int NL>
+template <int NL, bool PHASES = false>
 __device__ __forceinline__ void consume_item(Ring& r, uint32_t* acc, const Item& it, int n_st,
-                                             int wg, const Args& a) {
+                                             int wg, const Args& a, Phases* ph = nullptr) {
   int32_t d[32 * NL];
 #pragma unroll
   for (int i = 0; i < 32 * NL; ++i) d[i] = 0;
-  consume<NL>(r, n_st, wg, d);
+  consume<NL, PHASES>(r, n_st, wg, d, ph);
+  [[maybe_unused]] uint32_t c0 = 0;
+  if constexpr (PHASES) c0 = sm_clock();
   add_tile<NL>(acc, d, a.B, a.N, a.k + 1, it.o, it.m0 + wg * (BM / 2), it.j0);
+  if constexpr (PHASES) {
+    ph->last = sm_clock() - c0;
+    ph->work += ph->last;
+  }
 }
 
+template <bool PHASES = false>
 __device__ __forceinline__ void consume_any(Ring& r, uint32_t* acc, const Item& it, int n_st,
-                                            int wg, const Args& a) {
+                                            int wg, const Args& a, Phases* ph = nullptr) {
   switch (it.nl) {
-    case 1: consume_item<1>(r, acc, it, n_st, wg, a); break;
-    case 2: consume_item<2>(r, acc, it, n_st, wg, a); break;
-    case 3: consume_item<3>(r, acc, it, n_st, wg, a); break;
-    default: consume_item<4>(r, acc, it, n_st, wg, a); break;
+    case 1: consume_item<1, PHASES>(r, acc, it, n_st, wg, a, ph); break;
+    case 2: consume_item<2, PHASES>(r, acc, it, n_st, wg, a, ph); break;
+    case 3: consume_item<3, PHASES>(r, acc, it, n_st, wg, a, ph); break;
+    default: consume_item<4, PHASES>(r, acc, it, n_st, wg, a, ph); break;
   }
 }
 
@@ -633,13 +707,15 @@ __device__ __forceinline__ void consume_step(Ring& r, uint32_t* acc, int n_st, c
 
 // The consumers' step walked by stage (kernels 1 and 2): piece_at's pieces,
 // each consumed and added into acc on its own.
+template <bool PHASES = false>
 __device__ __forceinline__ void consume_step_by_stage(Ring& r, uint32_t* acc, int n_st,
-                                                      const Args& a) {
+                                                      const Args& a, Phases* ph = nullptr) {
   const int wg = warpgroup();
   for (int i = 0;; ++i) {
     const Piece pc = piece_at(i, n_st, a);
     if (pc.end <= pc.first) break;
-    consume_any(r, acc, item_at(pc.idx, a), pc.end - pc.first, wg, a);
+    if constexpr (PHASES) ph->walk += (pc.end - pc.first) + (1u << WALK_PIECE);
+    consume_any<PHASES>(r, acc, item_at(pc.idx, a), pc.end - pc.first, wg, a, ph);
   }
 }
 

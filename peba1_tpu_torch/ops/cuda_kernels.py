@@ -33,10 +33,15 @@ every source and the flags; git ignores it), and bound with ctypes.
 ``launches`` counts the CUDA kernel launches each wrapper makes: one per
 call for every wrapper.  Each wrapper call is the span
 ``peba1.kernel.<wrapper>`` in a profiler's trace (``utils/logging``).
+Inside `record_phases`, `cmux_step_gen` and `blind_rotate_gen_full` launch
+the instance of their kernel that records each step's phases
+(``csrc/*_phases.cu``; ``step_phases`` reads the records); nothing else
+turns it on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -65,6 +70,11 @@ _ENTRIES = {
     "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
                                     [_P] * 5 + [_I] * 6 + [_U, _I, _I, _U, _P]),
+    "peba1_cmux_step_gen_phases": ("cmux_step_gen_phases",
+                                   [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P, _I, _I, _I, _P]),
+    "peba1_blind_rotate_gen_full_phases": (
+        "blind_rotate_gen_full_phases",
+        [_P] * 5 + [_I] * 6 + [_U, _I, _I, _U, _P, _I, _I, _I, _P]),
     "peba1_rotate_decompose": ("rotate_decompose", [_P] * 3 + [_I] * 5 + [_U, _I, _I, _I, _P]),
     "peba1_extprod_recombine": ("cmux_step", [_P] * 3 + [_I] * 7 + [_P]),
     "peba1_cmux_step": ("cmux_step", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _I, _P]),
@@ -318,6 +328,79 @@ def _sm_count(device: torch.device) -> int:
     return sms
 
 
+# --- the phases of a step: the recording instance of kernels 1 and 2 -------
+
+# The record layout of ``csrc/gen_rotation.cuh`` (REC_*): a header, then for
+# each recorded step, block and role (consumer warpgroups 0 and 1, the
+# producer) one record of REC_WORDS words; ``step_phases`` names the words.
+REC_HEADER = 16
+REC_TICKS = 12
+REC_TIMER_READS = 64
+REC_ROLES = 3
+REC_WORDS = 19
+
+
+@dataclasses.dataclass
+class PhaseRecords:
+    """One launch of kernel 1 or 2 under `record_phases`: the launch's
+    kernel, rows B and CMUX steps, and its record buffer (int64 on the card,
+    the layout of ``csrc/gen_rotation.cuh``), which holds steps
+    [first, first + count) of the launch."""
+
+    kernel: str
+    B: int
+    n_steps: int
+    first: int
+    count: int
+    buffer: torch.Tensor
+
+
+class PhaseRecorder:
+    """The launches that `record_phases` records: steps `steps` of each
+    launch of kernels 1 and 2 (clipped to the launch's steps), of the
+    launches numbered `calls` among those made inside it (all by default).
+    `launches` holds a `PhaseRecords` for each launch recorded."""
+
+    def __init__(self, steps: range, calls: "range | None" = None):
+        if steps.step != 1:
+            raise ValueError(f"record_phases: steps must be a contiguous range, got {steps}")
+        self.steps, self.calls = steps, calls
+        self.seen = 0
+        self.launches: "list[PhaseRecords]" = []
+
+    def window(self, kernel: str, B: int, n_steps: int, device: torch.device) -> tuple:
+        """The record arguments of this launch's ``_phases`` entry (buffer,
+        blocks it has room for, first step, count), or () if it records
+        nothing."""
+        call, self.seen = self.seen, self.seen + 1
+        first, stop = max(self.steps.start, 0), min(self.steps.stop, n_steps)
+        if stop <= first or (self.calls is not None and call not in self.calls):
+            return ()
+        blocks = _sm_count(device)      # one block an SM (__launch_bounds__(THREADS, 1))
+        buffer = torch.empty(REC_HEADER + (stop - first) * blocks * REC_ROLES * REC_WORDS,
+                             dtype=torch.int64, device=device)
+        self.launches.append(PhaseRecords(kernel, B, n_steps, first, stop - first, buffer))
+        return buffer.data_ptr(), blocks, first, stop - first
+
+
+_recorder: "PhaseRecorder | None" = None
+
+
+@contextlib.contextmanager
+def record_phases(steps: range, calls: "range | None" = None):
+    """Inside, `cmux_step_gen` and `blind_rotate_gen_full` launch their
+    kernel's recording instance (``peba1_<kernel>_phases``) and keep its
+    records of `steps` (see `PhaseRecorder`); yields the recorder.  The
+    recording instance computes the same acc.  Outside, and for every other
+    kernel, nothing changes."""
+    global _recorder
+    outer, _recorder = _recorder, PhaseRecorder(steps, calls)
+    try:
+        yield _recorder
+    finally:
+        _recorder = outer
+
+
 def _check_rotation_shapes(kernel: str, p: TfheParams) -> None:
     if p.N % BK_BYTES:
         raise ValueError(f"{kernel} kernel needs N % {BK_BYTES} == 0, got N={p.N}")
@@ -328,12 +411,18 @@ def _launch_rotation(kernel: str, acc: torch.Tensor, amt: torch.Tensor, key: tor
     """Launch ``peba1_<kernel>``, a kernel on the whole-rotation skeleton, on
     acc's device: acc (B, (k+1)*N), amt, the key, a (B, G*N) digits scratch
     and a zeroed grid barrier, then B, `steps`, the step sizes
-    (`_step_args`) and the kernel's own `tail` arguments."""
+    (`_step_args`) and the kernel's own `tail` arguments.  Inside
+    `record_phases`, kernels 1 and 2 launch through ``peba1_<kernel>_phases``
+    with the recorder's arguments after `tail`."""
     B, device = acc.shape[0], acc.device
     digits = torch.empty((B, (p.k + 1) * p.l * p.N), dtype=torch.int8, device=device)
     grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
-    _launch("peba1_" + kernel, device, acc.data_ptr(), amt.data_ptr(), key.data_ptr(),
-            digits.data_ptr(), grid_bar.data_ptr(), B, steps, *_step_args(p), *tail)
+    entry, rec = "peba1_" + kernel, ()
+    if _recorder is not None and kernel in BY_STAGE:
+        rec = _recorder.window(kernel, B, steps, device)
+        entry += "_phases" if rec else ""
+    _launch(entry, device, acc.data_ptr(), amt.data_ptr(), key.data_ptr(),
+            digits.data_ptr(), grid_bar.data_ptr(), B, steps, *_step_args(p), *tail, *rec)
     launches[kernel] += 1
 
 

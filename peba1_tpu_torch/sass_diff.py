@@ -11,8 +11,9 @@ and compares each kernel's instructions (addresses, encodings and the
 anonymous namespace, which names the file, left out).  ``ours=theirs``
 compares this tree's ``csrc/ours.cu`` with the other's ``csrc/theirs.cu``,
 for a kernel that moved to another source.  Prints one line per kernel of
-this tree and exits non-zero if any differs or is missing there.  Needs
-the CUDA toolkit, not a card.
+this tree (a kernel or a source new here is named missing there) and exits
+non-zero if a kernel of both trees differs.  Needs the CUDA toolkit, not a
+card.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def sass(root: str, stem: str, tag: str) -> "dict[str, list[str]]":
             # The length prefix too: it counts the file name's characters.
             name = re.sub(r"\d*_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "ANON", m.group(1))
             funcs[name] = []
-        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             funcs[name].append(line.split(";")[0].split("*/", 1)[1].strip())
     return funcs
 
@@ -59,15 +60,19 @@ def main() -> None:
         stem, _, their_stem = pair.partition("=")
         their_stem = their_stem or stem
         if not (Path(sys.argv[1]) / "peba1_tpu_torch" / "csrc" / f"{their_stem}.cu").exists():
-            print(f"{pair}: no csrc/{their_stem}.cu in {sys.argv[1]}")
-            same = False
+            for name, ins in sass(here, stem, "ours").items():
+                print(f"{pair}: {name}: missing there, no csrc/{their_stem}.cu "
+                      f"({len(ins)} instructions here)")
             continue
         theirs, ours = sass(sys.argv[1], their_stem, "theirs"), sass(here, stem, "ours")
         for name, ins in ours.items():
-            equal = theirs.get(name) == ins
+            if name not in theirs:
+                print(f"{pair}: {name}: missing there ({len(ins)} instructions here)")
+                continue
+            equal = theirs[name] == ins
             same &= equal
             print(f"{pair}: {name}: {'identical' if equal else 'DIFFERS'} "
-                  f"({len(ins)} instructions here, {len(theirs.get(name, []))} there)")
+                  f"({len(ins)} instructions here, {len(theirs[name])} there)")
         gone = sorted(set(theirs) - set(ours))
         if gone:
             print(f"{pair}: only in {sys.argv[1]}: {', '.join(gone)}")
