@@ -11,10 +11,12 @@
 // column j over contraction bytes k0..k0+127 are the contiguous window
 // vv[1+j+k0 : 1+j+k0+128].  The producer warpgroup fetches the window of
 // generator bytes a work item reads (N + 80 bytes a limb) into shared memory
-// by cp.async, one unit ahead, and builds each 16-byte chunk of a column
-// from aligned 32-bit reads with funnel shifts (two reads a chunk: columns
-// four apart share words), stored at its 128-byte-swizzled place.  The
-// digit tile comes by TMA.  An item is the whole contraction (the entry
+// by bulk copy, one unit ahead (a step's first unit's as the step begins, so
+// that they land under its digit phase), and builds each 16-byte chunk of a
+// column from aligned 32-bit reads with funnel shifts (two reads a chunk:
+// columns four apart share words), stored at its 128-byte-swizzled place;
+// the ring's first weight tiles of a step are built inside barrier 1.  The
+// digit tile comes by TMA, after the barrier.  An item is the whole contraction (the entry
 // points set a.split = 1), and a step's items are walked by stage
 // (whole_rotation.cuh's piece_at).  The walk below still divides by
 // a.split: with it folded away, the same walk compiled to code up to 2%
@@ -50,7 +52,7 @@ constexpr int REC_HEADER = 16;          // header words before the records
 constexpr int REC_TICKS = 12;           // timer steps in the header, from word 3
 constexpr int REC_TIMER_READS = 64;     // header word 15: ns of this many stamps in a row
 constexpr int REC_ROLES = 3;            // consumer warpgroups 0, 1; producer
-constexpr int REC_WORDS = 19;           // words of one record
+constexpr int REC_WORDS = 23;           // words of one record
 constexpr int REC_T_START = 0;          // timer: the step starts
 constexpr int REC_T_DIGITS = 1;         // timer: this thread's digit phase ends
 constexpr int REC_T_BAR1_ARRIVE = 2;    // timer, thread 0: the block arrives at barrier 1
@@ -70,6 +72,10 @@ constexpr int REC_ISSUE = 15;
 constexpr int REC_STAGES = 16;          // stages this role's walk ran in the step
 constexpr int REC_PIECES = 17;          // its pieces (consumers) or units (producer)
 constexpr int REC_TAG = 18;             // step << 32 | block << 8 | (role + 1)
+constexpr int REC_T_EARLY_END = 19;     // timer, producer: its work before barrier 1's end ends
+constexpr int REC_EARLY_WAIT = 20;      // Early::wait, work, stages (producer; 0 for consumers)
+constexpr int REC_EARLY_WORK = 21;
+constexpr int REC_EARLY = 22;
 
 // The record window, a kernel parameter of the PHASES instance.
 struct PhaseRec {
@@ -127,28 +133,23 @@ __device__ __forceinline__ void record_header(const PhaseRec& pr) {
 constexpr int PRODUCER_REGS = 104;
 
 // Bytes of one limb's generator window in shared memory: vv[j0 + y] for
-// y < N + 80, which covers every byte a tile reads (y <= N + 62) and the
-// next aligned word.
+// y < N + 80, which covers every byte a tile reads (y <= N + 67: words from
+// y <= N + 36, the bytes it keeps y <= N + 63).
 __host__ __device__ __forceinline__ int window_bytes(int N) { return N + 80; }
 
-// Starts the asynchronous copy of the generator windows of the nl limb rows
-// at vv_rows (2N bytes apart) into win: 16-byte cp.async chunks, zeros past
-// the row's end.  The caller waits with cp.async.wait_all.
-__device__ __forceinline__ void fetch_window(uint32_t win, const int8_t* vv_rows, int nl,
-                                             int j0, int N, int ptid) {
-  const int chunks = window_bytes(N) / 16;
-  for (int idx = ptid; idx < nl * chunks; idx += 128) {
-    const int m = idx / chunks, c = idx - m * chunks;
-    const uint32_t dst = win + m * window_bytes(N) + 16 * c;
-    if (j0 + 16 * c < 2 * N) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-                   "l"(vv_rows + (size_t)m * 2 * N + j0 + 16 * c)
-                   : "memory");
-    } else {
-      sts128(dst, 0, 0, 0, 0);
-    }
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
+// Starts the bulk copy (the async proxy, one thread) of the generator
+// windows of nl limb rows at src (2N bytes apart) into win (window_bytes(N)
+// apart), `bytes` a row, completing on the mbarrier wbar.  A row ends at
+// 2N: where its window would pass the end, `bytes` stops there, and the
+// words a tile reads past it hold no byte it keeps.
+__device__ __forceinline__ void fetch_window(uint32_t win, uint32_t wbar, const int8_t* src,
+                                             int nl, int bytes, int N) {
+  mbar_arrive_expect_tx(wbar, nl * bytes);
+  for (int m = 0; m < nl; ++m)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(win + m * window_bytes(N)), "l"(src + (size_t)m * 2 * N), "r"(bytes), "r"(wbar)
+        : "memory");
 }
 
 // The weight tile of contraction bytes h*128.. of polynomial g: chunk q of
@@ -200,44 +201,204 @@ __device__ __forceinline__ Unit unit_at(int u, int per_split, const Args& a) {
           min(t.y - v * hs, hs)};
 }
 
-// The producer warpgroup in one step: every stage of the block's pieces.
-// The units run in order; each unit's generator windows are fetched into
-// one of two buffers while the unit before it is expanded.  With PHASES,
-// its waits and expansions are timed into *ph.
+// Named barrier of a block's arrival at barrier 1 of a step
+// (whole_rotation.cuh's grid_sync<PHASES, BAR1_ARRIVE>); 1 is producer_sync's.
+constexpr int BAR1_ARRIVE = 2;
+
+// The producer warpgroup's part in barrier 1: it arrives with the block (a
+// barrier.arrive orders its digit stores before thread 0's release as a
+// barrier.sync does) and goes on without waiting for the grid; then, after
+// its work that needs no digit, it joins the block barrier that follows
+// thread 0's wait.
+__device__ __forceinline__ void producer_arrive() {
+  asm volatile("barrier.arrive %0, %1;" ::"n"(BAR1_ARRIVE), "n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void producer_join() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
+// What the producer did before barrier 1's end in a recorded step (PHASES):
+// the timer as it ended, the cycles until its first unit's windows had
+// landed (and the second's fetch was issued), the cycles expanding, and the
+// stages expanded.
+struct Early {
+  uint64_t end = 0;
+  uint32_t wait = 0, work = 0, stages = 0;
+};
+
+// Where a unit's operands lie, the same in every step of a launch: its
+// first limb's window in a step's key (((g * C + c0) * 2N + j0), the bytes
+// of each limb's window (window_bytes(N), or to the row's end), its limbs,
+// the digit tiles' column at stage 0 of its polynomial (g * N) and row (the
+// item's m0), and its stages [h0, h1).
+struct UnitRef {
+  int key, bytes, nl, col, row, h0, h1, pad;
+};
+
+// The producer keeps the first UNIT_REFS units of its block's walk
+// (unit_at, item_at) in shared memory, worked out once a launch; a walk
+// longer than that (over about 10,000 rows at N = 1024) works out the rest
+// as it goes.  The walk's index arithmetic, divisions by values known only
+// at run time, took 0.5-0.7 µs a unit on the producer's path (PERF.md §6).
+constexpr int UNIT_REFS = 128;
+
+// Shared memory of kernels 1 and 2 past the ring's barriers: two buffers of
+// generator windows (up to four limbs each), their two mbarriers, the refs.
+__host__ __device__ __forceinline__ int gen_extra(int N) {
+  return 2 * 4 * window_bytes(N) + 16 + UNIT_REFS * (int)sizeof(UnitRef);
+}
+__device__ __forceinline__ uint32_t window_bar(uint32_t win, int N, int b) {
+  return win + 2 * 4 * window_bytes(N) + 8 * b;
+}
+__device__ __forceinline__ uint32_t refs_at(uint32_t win, int N) {
+  return win + 2 * 4 * window_bytes(N) + 16;
+}
+
+__device__ __forceinline__ UnitRef unit_ref(int u, int per_split, const Args& a) {
+  const Unit un = unit_at(u, per_split, a);
+  const Item it = item_at(un.idx, a);
+  const int g = it.split * per_split + un.gl, C = a.k * a.mask_limbs + a.body_limbs;
+  return {(g * C + it.c0) * 2 * a.N + it.j0, min(window_bytes(a.N), 2 * a.N - it.j0), it.nl,
+          g * a.N, it.m0, un.h0, un.h1, 0};
+}
+
+// Unit u's ref: from the table below UNIT_REFS, else worked out.
+__device__ __forceinline__ UnitRef ref_of(int u, uint32_t win, const Args& a) {
+  if (u >= UNIT_REFS) return unit_ref(u, (a.k + 1) * a.l / a.split, a);
+  const uint32_t at = refs_at(win, a.N) + u * (int)sizeof(UnitRef);
+  UnitRef ref;
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(ref.key), "=r"(ref.bytes), "=r"(ref.nl), "=r"(ref.col)
+               : "r"(at) : "memory");
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(ref.row), "=r"(ref.h0), "=r"(ref.h1), "=r"(ref.pad)
+               : "r"(at + 16) : "memory");
+  return ref;
+}
+
+// The producer warpgroup, once a launch: the window buffers' mbarriers
+// (thread 256) and the table of its block's first UNIT_REFS units.
+__device__ __forceinline__ void set_up_units(uint32_t win, const Args& a) {
+  const int ptid = thread_idx() - 2 * 128;
+  if (ptid == 0) {
+    mbar_init(window_bar(win, a.N, 0), 1);
+    mbar_init(window_bar(win, a.N, 1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int u = ptid; u < UNIT_REFS; u += 128) {
+    const UnitRef ref = unit_ref(u, (a.k + 1) * a.l / a.split, a);
+    const uint32_t at = refs_at(win, a.N) + u * (int)sizeof(UnitRef);
+    sts128(at, ref.key, ref.bytes, ref.nl, ref.col);
+    sts128(at + 16, ref.row, ref.h0, ref.h1, ref.pad);
+  }
+  producer_sync();
+}
+
+// Starts the fetch of unit u's generator windows of step key vv_s into the
+// window buffer of its parity, by thread 256, if the unit is not empty.
+__device__ __forceinline__ void fetch_unit(int u, const int8_t* vv_s, uint32_t win,
+                                           const Args& a) {
+  if (thread_idx() != 2 * 128) return;
+  const UnitRef ref = ref_of(u, win, a);
+  if (ref.h0 >= ref.h1) return;
+  fetch_window(win + (u & 1) * 4 * window_bytes(a.N), window_bar(win, a.N, u & 1),
+               vv_s + ref.key, ref.nl, ref.bytes, a.N);
+}
+
+// Waits until unit u's windows have landed, then until the whole producer
+// warpgroup has (the other buffer is then free).  wpar: bit b, the parity of
+// buffer b's next fetch.
+__device__ __forceinline__ void await_windows(int u, uint32_t win, int N, uint32_t& wpar) {
+  mbar_wait(window_bar(win, N, u & 1), (wpar >> (u & 1)) & 1u);
+  wpar ^= 1u << (u & 1);
+  producer_sync();
+}
+
+// The producer warpgroup's work of a step that needs no digit, done while
+// thread 0 waits in barrier 1: the first unit's windows (fetched as the
+// step began) awaited and the second unit's fetched, then the weight tiles
+// of the first unit's first stages expanded into the ring's next stages,
+// which barrier 2 of the step before left empty.  As many as the ring's
+// depth less one, so that after barrier 1 the producer expands the next
+// stage while their digit tiles land instead of waiting on `empty`; one
+// below a full row tile, whose digit tile comes later (mostly rows past the
+// batch, filled with zeros): there the producer would wait on `empty` for
+// the consumers' first stages (PERF.md §6).  r is a copy (produce_step
+// advances the ring as it arrives).  Returns the stages expanded, 0 on an
+// empty walk.
+template <bool PHASES = false>
+__device__ __forceinline__ int expand_early(Ring r, const int8_t* vv_s, uint32_t win,
+                                            uint32_t& wpar, const Args& a, Early* e = nullptr) {
+  const int ptid = thread_idx() - 2 * 128;
+  const UnitRef first = ref_of(0, win, a);
+  if (first.h0 >= first.h1) return 0;
+  [[maybe_unused]] uint32_t c0 = 0;
+  if constexpr (PHASES) c0 = sm_clock();
+  await_windows(0, win, a.N, wpar);
+  fetch_unit(1, vv_s, win, a);
+  if constexpr (PHASES) {
+    const uint32_t c1 = sm_clock();
+    e->wait = c1 - c0;
+    c0 = c1;
+  }
+  const int early = min(a.B < BM ? 1 : r.stages - 1, first.h1 - first.h0);
+  for (int i = 0; i < early; ++i) {
+    r.wait_empty();
+    expand_tile(r.b_tile(), win, first.nl, first.h0 + i, a.N, ptid);
+    fence_proxy_async_shared();  // the generic stores, before wgmma reads them
+    r.advance();
+  }
+  if constexpr (PHASES) {
+    e->work = sm_clock() - c0;
+    e->stages = early;
+  }
+  return early;
+}
+
+// The producer warpgroup in one step, after barrier 1: every stage of the
+// block's pieces.  The units run in order; each unit's generator windows
+// are fetched into one of two buffers while the unit before it is expanded
+// (the first unit's, and the fetch of the second's, before barrier 1).  The
+// first unit's first `early` stages were expanded before barrier 1
+// (expand_early): only their digit tiles are issued.  With PHASES, its
+// waits and expansions are timed into *ph.
 template <bool PHASES = false>
 __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_map,
-                                             const int8_t* vv_s, uint32_t win, const Args& a,
-                                             Phases* ph = nullptr) {
+                                             const int8_t* vv_s, uint32_t win, uint32_t& wpar,
+                                             const Args& a, int early, Phases* ph = nullptr) {
   const int ptid = thread_idx() - 2 * 128;
-  const int G = (a.k + 1) * a.l, C = a.k * a.mask_limbs + a.body_limbs;
-  const int per_split = G / a.split;
-  auto fetch = [&](const Unit& un, int unit) {
-    const Item it = item_at(un.idx, a);
-    const int g = it.split * per_split + un.gl;
-    fetch_window(win + (unit & 1) * 4 * window_bytes(a.N),
-                 vv_s + ((size_t)g * C + it.c0) * 2 * a.N, it.nl, it.j0, a.N, ptid);
-  };
-  const Unit first = unit_at(0, per_split, a);
-  if (first.h0 < first.h1) fetch(first, 0);
+  [[maybe_unused]] uint32_t c0 = 0;
   for (int unit = 0;; ++unit) {
-    const Unit un = unit_at(unit, per_split, a);
+    const UnitRef un = ref_of(unit, win, a);
     if (un.h0 >= un.h1) break;
     if constexpr (PHASES) ph->walk += (un.h1 - un.h0) + (1u << WALK_PIECE);
-    const Item it = item_at(un.idx, a);
-    const int g = it.split * per_split + un.gl;
-    [[maybe_unused]] uint32_t c0 = 0;
-    if constexpr (PHASES) c0 = sm_clock();
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    producer_sync();  // this unit's windows have landed; the other buffer is free
-    if constexpr (PHASES) {
-      const uint32_t c1 = sm_clock();
-      ph->wait2 += c1 - c0;
-      if (ph->last == 0) ph->last = c1 - ph->start;
+    if (unit > 0) {
+      if constexpr (PHASES) c0 = sm_clock();
+      await_windows(unit, win, a.N, wpar);  // this unit's windows; the other buffer is free
+      if constexpr (PHASES) {
+        const uint32_t c1 = sm_clock();
+        ph->wait2 += c1 - c0;
+        if (ph->last == 0) ph->last = c1 - ph->start;
+      }
+      fetch_unit(unit + 1, vv_s, win, a);
     }
-    const Unit next = unit_at(unit + 1, per_split, a);
-    if (next.h0 < next.h1) fetch(next, unit + 1);
     const uint32_t w = win + (unit & 1) * 4 * window_bytes(a.N);
-    for (int h = un.h0; h < un.h1; ++h) {
+    int h = un.h0;
+    for (; h < un.h0 + early; ++h) {  // expanded before barrier 1
+      if constexpr (PHASES) c0 = sm_clock();
+      if (ptid == 0) {
+        mbar_expect_tx(r.full(r.stage), A_BYTES);
+        tma_load_2d(r.a_tile(), digits_map, r.full(r.stage), un.col + h * BK, un.row);
+      }
+      if constexpr (PHASES) {
+        const uint32_t c1 = sm_clock();
+        ph->issue += c1 - c0;
+        if (ph->fill == 0) ph->fill = c1 - ph->start;
+      }
+      mbar_arrive(r.full(r.stage));
+      r.advance();
+    }
+    early = 0;
+    for (; h < un.h1; ++h) {
       if constexpr (PHASES) c0 = sm_clock();
       r.wait_empty();
       if constexpr (PHASES) {
@@ -247,14 +408,14 @@ __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_
       }
       if (ptid == 0) {
         mbar_expect_tx(r.full(r.stage), A_BYTES);
-        tma_load_2d(r.a_tile(), digits_map, r.full(r.stage), g * a.N + h * BK, it.m0);
+        tma_load_2d(r.a_tile(), digits_map, r.full(r.stage), un.col + h * BK, un.row);
       }
       if constexpr (PHASES) {
         const uint32_t c1 = sm_clock();
         ph->issue += c1 - c0;
         c0 = c1;
       }
-      expand_tile(r.b_tile(), w, it.nl, h, a.N, ptid);
+      expand_tile(r.b_tile(), w, un.nl, h, a.N, ptid);
       fence_proxy_async_shared();  // the generic stores, before wgmma reads them
       if constexpr (PHASES) {
         const uint32_t c1 = sm_clock();
@@ -268,8 +429,10 @@ __device__ __forceinline__ void produce_step(Ring& r, const CUtensorMap* digits_
 }
 
 // The end of a recorded step's GEMM phase for this role: the timer, the
-// cycle totals, and the stages and pieces (or units) its walk ran.
-__device__ __forceinline__ void record_gemm(uint64_t* rec, const Phases& ph, int s) {
+// cycle totals, the stages and pieces (or units) its walk ran, and the
+// producer's work before barrier 1's end (zeros for the consumers).
+__device__ __forceinline__ void record_gemm(uint64_t* rec, const Phases& ph, const Early& e,
+                                            int s) {
   const uint32_t cycles = sm_clock() - ph.start;
   const uint64_t end = global_ns();  // stored last, once the read has landed
   rec[REC_GEMM_CYCLES] = cycles;
@@ -283,6 +446,10 @@ __device__ __forceinline__ void record_gemm(uint64_t* rec, const Phases& ph, int
   rec[REC_PIECES] = ph.walk >> WALK_PIECE;
   rec[REC_TAG] =
       (uint64_t)s << 32 | (uint64_t)blockIdx.x << 8 | (uint64_t)((thread_idx() >> 7) + 1);
+  rec[REC_T_EARLY_END] = e.end;
+  rec[REC_EARLY_WAIT] = e.wait;
+  rec[REC_EARLY_WORK] = e.work;
+  rec[REC_EARLY] = e.stages;
   rec[REC_T_GEMM_END] = end;
 }
 
@@ -299,22 +466,31 @@ __device__ __forceinline__ void record_steps(Ring& r, const CUtensorMap* digits_
   uint64_t* rec = nullptr;
   uint64_t t_start = 0, t_digits = 0;
   Phases ph;
+  Early e;
   if (warpgroup() == 2) {
     producer_registers<PRODUCER_REGS>();
+    set_up_units(r.extra, a);
+    uint32_t wpar = 0;
     if constexpr (INIT) grid_sync(grid_bar, bar);  // the initial acc exists
     for (int s = 0; s < a.n_steps; ++s) {
       rec = record_of(pr, s);
       if (rec) t_start = global_ns();
+      const int8_t* vv_s = vv + s * vv_step;
+      fetch_unit(0, vv_s, r.extra, a);
       digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
       if (rec) t_digits = global_ns();
-      // every digit of the step exists
-      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR1_ARRIVE : nullptr);
+      producer_arrive();  // every digit of the step exists, once the grid has arrived
+      e = Early{};
+      const int early = expand_early<true>(r, vv_s, r.extra, wpar, a, &e);
+      if (rec) e.end = global_ns();
+      producer_join();
       fence_proxy_async_global();
+      if (rec) rec[REC_T_BAR1_ARRIVE] = rec[REC_T_BAR1_SEEN] = 0;  // thread 0's stamps
       record_bar1(rec, t_start, t_digits);
       ph = Phases{};
       ph.start = sm_clock();
-      produce_step<true>(r, digits_map, vv + s * vv_step, r.extra, a, &ph);
-      if (rec) record_gemm(rec, ph, s);
+      produce_step<true>(r, digits_map, vv_s, r.extra, wpar, a, early, &ph);
+      if (rec) record_gemm(rec, ph, e, s);
       // every acc add of the step has landed
       grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR2_ARRIVE : nullptr);
       stamp(rec, REC_T_BAR2_EXIT);
@@ -327,12 +503,12 @@ __device__ __forceinline__ void record_steps(Ring& r, const CUtensorMap* digits_
       if (rec) t_start = global_ns();
       digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
       if (rec) t_digits = global_ns();
-      grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR1_ARRIVE : nullptr);
+      grid_sync<true, BAR1_ARRIVE>(grid_bar, bar, rec ? rec + REC_T_BAR1_ARRIVE : nullptr);
       record_bar1(rec, t_start, t_digits);
       ph = Phases{};
       ph.start = sm_clock();
       consume_step_by_stage<true>(r, acc, n_st, a, &ph);
-      if (rec) record_gemm(rec, ph, s);
+      if (rec) record_gemm(rec, ph, e, s);
       grid_sync<true>(grid_bar, bar, rec ? rec + REC_T_BAR2_ARRIVE : nullptr);
       stamp(rec, REC_T_BAR2_EXIT);
     }
@@ -348,6 +524,9 @@ __device__ __forceinline__ void record_steps(Ring& r, const CUtensorMap* digits_
 // only after the grid barrier that ends step s-1's adds, and its GEMM phase
 // adds into acc only after the grid barrier that ends its digit phase: no
 // digit of a step is read after an acc element of that step is written.
+// The producer warpgroup starts the step's first generator windows before
+// its digit phase and expands the ring's first weight tiles inside barrier
+// 1 (expand_early); it issues their digit tiles only after the barrier.
 // PHASES (the recording instance, *pr its window): the steps of
 // record_steps.  The default instance's code holds nothing of the recorder:
 // a trace of it there (a Phases on the stack) changed kernel 2's machine code.
@@ -371,12 +550,18 @@ __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint
   }
   if (warpgroup() == 2) {
     producer_registers<PRODUCER_REGS>();
+    set_up_units(r.extra, a);
+    uint32_t wpar = 0;  // bit b: the parity of window buffer b's next fetch
     if constexpr (INIT) grid_sync(grid_bar, bar);  // the initial acc exists
     for (int s = 0; s < a.n_steps; ++s) {
+      const int8_t* vv_s = vv + s * vv_step;
+      fetch_unit(0, vv_s, r.extra, a);
       digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
-      grid_sync(grid_bar, bar);  // every digit of the step exists
+      producer_arrive();  // every digit of the step exists, once the grid has arrived
+      const int early = expand_early(r, vv_s, r.extra, wpar, a);
+      producer_join();
       fence_proxy_async_global();
-      produce_step(r, digits_map, vv + s * vv_step, r.extra, a);
+      produce_step(r, digits_map, vv_s, r.extra, wpar, a, early);
       grid_sync(grid_bar, bar);  // every acc add of the step has landed
     }
   } else {  // consumer warpgroups 0 and 1
@@ -384,7 +569,7 @@ __device__ __forceinline__ void gen_rotation(const CUtensorMap* digits_map, uint
     if constexpr (INIT) grid_sync(grid_bar, bar);
     for (int s = 0; s < a.n_steps; ++s) {
       digit_phase<false>(acc, amt + (size_t)(s + INIT) * a.B, digits, a);
-      grid_sync(grid_bar, bar);
+      grid_sync<false, BAR1_ARRIVE>(grid_bar, bar);
       consume_step_by_stage(r, acc, n_st, a);
       grid_sync(grid_bar, bar);
     }
@@ -403,7 +588,7 @@ inline int launch_gen_rotation(Kernel kernel, void* acc, const void* amt, const 
                                const PhaseRec* pr = nullptr, int rec_blocks = 0) {
   const int G = (a.k + 1) * a.l;
   if (a.N % BK) return (int)cudaErrorInvalidValue;
-  const int extra = 2 * 4 * window_bytes(a.N);  // two buffers of up to four limbs
+  const int extra = gen_extra(a.N);
   a.stages = ring_stages(extra);
   if (a.stages == 0) return (int)cudaErrorInvalidConfiguration;
   const int smem = ring_smem(a.stages, extra);

@@ -255,7 +255,8 @@ __device__ __forceinline__ uint64_t global_ns() {
 // full).  Producer: wait (on empty), wait2 (cp.async.wait_all and the
 // warpgroup's barrier after it), work (expand_tile and its proxy fence),
 // issue (the digit tile's TMA, which thread 256 issues), last (from
-// barrier 1's exit until its first unit's windows have landed).  Consumers:
+// barrier 1's exit until its second unit's windows have landed; its first
+// unit's land before, gen_rotation.cuh's expand_early).  Consumers:
 // wait (on full, after the first stage), wait2 (wgmma_wait), work
 // (add_tile), issue (the stage's wgmma: descriptors, fence, four wgmma,
 // commit), last (the step's last add_tile).  walk: the stages run, plus the
@@ -390,12 +391,16 @@ __device__ __forceinline__ void wgmma_s8<4>(int32_t (&d)[128], uint64_t da, uint
 // as it sees the last block's arrival, and stores them in stamps[0] and
 // stamps[1] after the barrier, so that no store waits on a read in the
 // barrier's path; another thread with `stamps` stores zeros there.
-template <bool PHASES = false>
+// ARRIVE != 0 (kernels 1 and 2's barrier 1): the block's arrival is named
+// barrier ARRIVE over the THREADS threads, at which the producer warpgroup
+// only arrives (gen_rotation.cuh's producer_arrive) and the caller syncs.
+template <bool PHASES = false, int ARRIVE = 0>
 __device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int& target,
                                           uint64_t* stamps = nullptr) {
   [[maybe_unused]] uint64_t arrive = 0, seen_at = 0;
   target += gridDim.x;
-  asm volatile("barrier.sync 0;" ::: "memory");
+  if constexpr (ARRIVE == 0) asm volatile("barrier.sync 0;" ::: "memory");
+  else asm volatile("barrier.sync %0, %1;" ::"n"(ARRIVE), "n"(THREADS) : "memory");
   if (thread_idx() == 0) {
     if constexpr (PHASES) arrive = global_ns();
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");

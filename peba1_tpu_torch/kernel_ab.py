@@ -70,6 +70,7 @@ CASES = (
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 512, 8),
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 256, 8),
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 128, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 16, 8),
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 8192, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 128, 8),

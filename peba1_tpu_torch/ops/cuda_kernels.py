@@ -193,6 +193,25 @@ def _step_args(p: TfheParams) -> tuple:
 BM_ROWS = 128      # batch rows of one work item (two 64-row wgmma warpgroups)
 BN_COLS = 64       # coefficients of one work item
 BK_BYTES = 128     # contraction bytes of one shared-memory stage
+RING_MAX_STAGES = 4                                              # MAX_STAGES
+RING_STAGE_BYTES = BM_ROWS * BK_BYTES + 4 * BN_COLS * BK_BYTES   # STAGE_BYTES
+
+
+UNIT_REFS, UNIT_REF_BYTES = 128, 32                              # gen_rotation.cuh
+
+
+def gen_ring_stages(N: int, smem_per_block: int) -> int:
+    """The ring depth of kernels 1 and 2 at ring degree N on a card whose
+    blocks may opt in to `smem_per_block` bytes of shared memory
+    (``whole_rotation.cuh``'s ``ring_stages`` beside ``gen_rotation.cuh``'s
+    ``gen_extra``: two buffers of generator windows, N + 80 bytes a limb, up
+    to four limbs, their two mbarriers and the table of UNIT_REFS units):
+    at most RING_MAX_STAGES, 0 if not even two fit."""
+    extra = 2 * 4 * (N + 80) + 16 + UNIT_REFS * UNIT_REF_BYTES
+    for stages in range(RING_MAX_STAGES, 1, -1):
+        if 1024 + stages * (RING_STAGE_BYTES + 16) + extra <= smem_per_block:
+            return stages
+    return 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +273,20 @@ class TilePlan:
             out.append((full * grid + r, s - r * P, end - r * P))
             s = end
         return out
+
+    def early_stages(self, block: int, grid: int, ring: int, rows: int) -> int:
+        """The stages whose weight tiles `block`'s producer expands inside
+        barrier 1 of a step walked by stage at `rows` rows, on a ring of
+        `ring` stages (``gen_rotation.cuh``'s ``expand_early``): those of its
+        first unit, its first piece up to the end of that piece's digit
+        polynomial (`depth` stages), at most ring - 1, or one below a full
+        row tile of BM_ROWS; 0 on an empty walk."""
+        pieces = self.pieces(block, grid)
+        if not pieces:
+            return 0
+        _, first, end = pieces[0]
+        most = 1 if rows < BM_ROWS else ring - 1
+        return min(most, min(end, (first // self.depth + 1) * self.depth) - first)
 
     def critical_stages(self, grid: int) -> int:
         """The most stages a block runs in a step walked by stage:
@@ -337,7 +370,7 @@ REC_HEADER = 16
 REC_TICKS = 12
 REC_TIMER_READS = 64
 REC_ROLES = 3
-REC_WORDS = 19
+REC_WORDS = 23
 
 
 @dataclasses.dataclass

@@ -44,10 +44,20 @@ arrivals and the walk); the consumers waiting on the producer or the TMA
 (``full``, after the fill), issuing their ``wgmma``, waiting on them, in
 their epilogues, and the rest (their releases and the walk).  Also the
 critical block's producer fill (barrier 1's exit to its first arrival) and
-the part of it until its first generator windows had landed, and
-`record_us`, the mean block's time from its roles' last GEMM end to its
-arrival at barrier 2, in which the recording threads store the step's
-record (the recording's own cost on the critical path, with the stamps).
+its time from barrier 1's exit until its second unit's generator windows
+had landed, and `record_us`, the mean block's time from its roles' last
+GEMM end to its arrival at barrier 2, in which the recording threads store
+the step's record (the recording's own cost on the critical path, with the
+stamps).
+
+The producer's work before barrier 1's end (``expand_early``: it arrives at
+the barrier without waiting, awaits its first unit's windows, fetched as
+the step began, and expands the ring's first weight tiles while thread 0
+waits for the grid): the critical block's stages so expanded and its µs
+awaiting the windows and expanding (`early_*`), and `early_over_us`, over
+the blocks that expanded any, how long after thread 0 saw the last block
+arrive the producer's early work ended (negative: inside the barrier's
+wait; positive: the producer held its block at the barrier).
 The SM clock turns cycles into time at the rate the records give (GEMM
 cycles over the timer's ns).
 """
@@ -67,7 +77,8 @@ from .ops.cuda_kernels import REC_HEADER, REC_ROLES, REC_TICKS, REC_TIMER_READS,
 # The words of a record, in order (``csrc/gen_rotation.cuh``'s REC_*).
 WORDS = ("T_START", "T_DIGITS", "T_BAR1_ARRIVE", "T_BAR1_SEEN", "T_BAR1_EXIT", "T_GEMM_END",
          "T_BAR2_ARRIVE", "T_BAR2_SEEN", "T_BAR2_EXIT", "GEMM_CYCLES", "FILL", "WAIT", "WAIT2",
-         "WORK", "LAST", "ISSUE", "STAGES", "PIECES", "TAG")
+         "WORK", "LAST", "ISSUE", "STAGES", "PIECES", "TAG", "T_EARLY_END", "EARLY_WAIT",
+         "EARLY_WORK", "EARLY")
 W = {name: i for i, name in enumerate(WORDS)}
 CONSUMERS, PRODUCER = (0, 1), 2        # roles: consumer warpgroups 0 and 1, the producer
 
@@ -127,6 +138,7 @@ def reduce_steps(buffer) -> "list[dict]":
         epi = cons[:, W["LAST"]].max() / ghz
         gemm = L2 - int(x1[c])
         stages = int(r[c, 0, W["STAGES"]])
+        busy = r[:, PRODUCER, W["EARLY"]] > 0
         line = {
             "step": head["first"] + i,
             "span_us": (E - S) * us,
@@ -148,6 +160,12 @@ def reduce_steps(buffer) -> "list[dict]":
             if i + 1 < head["count"] else None,
             "producer_fill_us": r[c, PRODUCER, W["FILL"]] / ghz * us,
             "producer_windows_us": r[c, PRODUCER, W["LAST"]] / ghz * us,
+            "early_stages": int(r[c, PRODUCER, W["EARLY"]]),
+            "early_wait_us": r[c, PRODUCER, W["EARLY_WAIT"]] / ghz * us,
+            "early_expand_us": r[c, PRODUCER, W["EARLY_WORK"]] / ghz * us,
+            "early_over_us": float((r[busy, PRODUCER, W["T_EARLY_END"]]
+                                    - r[busy, 0, W["T_BAR1_SEEN"]]).mean()) * us
+            if busy.any() else None,
             "producer_empty_pct": _share(r, (PRODUCER,), "WAIT"),
             "producer_window_pct": _share(r, (PRODUCER,), "WAIT2"),
             "producer_expand_pct": _share(r, (PRODUCER,), "WORK"),
@@ -223,7 +241,8 @@ def check_records(buffer, n_steps: int) -> "list[str]":
                                   f"{int(r[W['TAG']]):#x}, want {want:#x}")
                     continue
                 order = ["T_START", "T_DIGITS"] + (["T_BAR1_ARRIVE", "T_BAR1_SEEN"]
-                                                   if role == 0 else []) + [
+                                                   if role == 0 else []) + (
+                    ["T_EARLY_END"] if role == PRODUCER else []) + [
                     "T_BAR1_EXIT", "T_GEMM_END"] + (["T_BAR2_ARRIVE", "T_BAR2_SEEN"]
                                                     if role == 0 else []) + ["T_BAR2_EXIT"]
                 t = [int(r[W[k]]) for k in order]
@@ -388,8 +407,8 @@ def _auth(smoke, device, seed: int) -> dict:
             "slice_rows_mean": statistics.fmean(runs["default"]["slice_rows"]),
             "recorded_calls": len(rec.launches),
             "parts_s": totals, "parts_total_s": sum(totals.values()),
-            "by_rows": {B: {"calls": len(s), **{k: statistics.fmean(x[k] for x in s)
-                                               for k in s[0] if s[0][k] is not None}}
+            "by_rows": {B: {"calls": len(s), **{k: statistics.fmean(v) for k in s[0]
+                                               if (v := [x[k] for x in s if x[k] is not None])}}
                         for B, s in sorted(by_rows.items())}}
 
 

@@ -452,19 +452,29 @@ def test_kernel_1_at_the_tfhers_bool_lattice(cuda_device, B, steps):
     assert ck.launches["cmux_step_gen"] == before + 1
 
 
-# Kernels 1 and 2 at the benchmark cells' lattices and at the default t2_gen.
+# Kernels 1 and 2 at the benchmark cells' lattices and at the default t2_gen;
+# kernel 2 at TOY (N = 128: a digit polynomial is one stage).
 WALKED = {"tfhe128_genf": ("blind_rotate_gen_full", cell_params()["peba1_tfhe128_genf"]),
           "tfhers_gen": ("cmux_step_gen", PRESETS["tfhers_bool_gen"]),
-          "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"])}
+          "t2_gen": ("cmux_step_gen", PRESETS["peba1_128_t2_gen"]),
+          "toy_genf": ("blind_rotate_gen_full", TOY)}
+WALK_CASES = ([(name, B) for name in ("t2_gen", "tfhe128_genf", "tfhers_gen")
+               for B in (1, 92, 128, 256, 512, 1152, 8192)]
+              + [("toy_genf", 1), ("toy_genf", 8192)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 92, 128, 256, 512, 1152, 8192])
-@pytest.mark.parametrize("name", sorted(WALKED))
+@pytest.mark.parametrize("name,B", WALK_CASES)
 def test_the_walk_by_stage_matches_plain(cuda_device, name, B):
     """Kernels 1 and 2 walk each step's last partial wave of work items by
     stage: three steps against the plain twin at an authentication's call
-    sizes and at 8,192 rows, one launch."""
+    sizes and at 8,192 rows, one launch.  Their producer expands its first
+    unit's first stages inside barrier 1 (at most three, one below 128
+    rows): at one row at TOY most blocks' walk is empty and the others
+    expand one stage; at 128 rows at tfhe128_genf some blocks' first unit
+    is shorter than three stages, and at 8,192 rows at TOY every block's;
+    at 8,192 rows at tfhe128_genf every block expands three
+    (tests/test_torch_splitk.py's test_the_card_cases_of_the_early_stages)."""
     kernel, p = WALKED[name]
     steps = 3
     acc, amt, vv = random_step_inputs(p, B, steps + 1, 20, cuda_device)

@@ -32,7 +32,10 @@ def build(steps: int, grid: int, first: int = 0) -> "tuple[np.ndarray, list[dict
     S + 4,000 + 500 b ns; barrier 1 releases 300 ns after the last arrival
     (+10 b); block b's GEMM phase lasts 20,000 + 1,000 b (block grid-1 the
     critical one), its consumers' fill 1,200 ns and last epilogue 600 ns, 40
-    stages; barrier 2 releases 400 ns after the last arrival."""
+    stages; barrier 2 releases 400 ns after the last arrival.  Before
+    barrier 1's end, block b's producer waits 400 ns for its windows and
+    expands 3 stages in 1,500 ns, ending 50 ns after its digit phase; block
+    0's walk is empty (unless it is the only block)."""
     R, Wd = ck.REC_ROLES, ck.REC_WORDS
     buf = np.zeros(ck.REC_HEADER + steps * grid * R * Wd, dtype=np.int64)
     buf[:3] = grid, first, steps
@@ -68,11 +71,17 @@ def build(steps: int, grid: int, first: int = 0) -> "tuple[np.ndarray, list[dict
                 r[W["STAGES"]] = 40
                 r[W["PIECES"]] = 2
                 r[W["TAG"]] = (first + i) << 32 | b << 8 | (role + 1)
+                if producer:
+                    r[W["T_EARLY_END"]] = a1[b] + 50
+                    r[W["EARLY_WAIT"]] = GHZ * 400
+                    r[W["EARLY_WORK"]] = GHZ * 1_500
+                    r[W["EARLY"]] = 0 if b == 0 < grid - 1 else 3
                 if role == 0:
                     r[W["T_BAR1_ARRIVE"]], r[W["T_BAR1_SEEN"]] = a1[b], L1 + 100
                     r[W["T_BAR2_ARRIVE"]], r[W["T_BAR2_SEEN"]] = a2[b], L2 + 200
         c = grid - 1
         stages_ns = gemm[c] - 1_200 - 600
+        busy = a1[1:] if grid > 1 else a1
         want.append({"step": first + i, "span_us": (E - S) / 1e3,
                      "digit_us": (a1.mean() - S) / 1e3, "bar1_skew_us": (L1 - a1.mean()) / 1e3,
                      "bar1_release_us": (x1[c] - L1) / 1e3, "fill_us": 1.2,
@@ -80,7 +89,9 @@ def build(steps: int, grid: int, first: int = 0) -> "tuple[np.ndarray, list[dict
                      "stage_us": stages_ns / 40 / 1e3, "epilogue_us": 0.6, "bar2_us": 0.4,
                      "bar1_notice_us": 0.1, "bar2_notice_us": 0.2, "producer_fill_us": 0.9,
                      "producer_windows_us": 0.5,
-                     "gemm_skew_us": (L2 - a2.mean()) / 1e3, "max_stages": 40})
+                     "gemm_skew_us": (L2 - a2.mean()) / 1e3, "max_stages": 40,
+                     "early_stages": 3, "early_wait_us": 0.4, "early_expand_us": 1.5,
+                     "early_over_us": (busy.mean() + 50 - (L1 + 100)) / 1e3})
         S = E + 50
     return buf, want
 
@@ -147,10 +158,12 @@ def test_check_records_finds_faults():
     rec[1, 2, 1, sp.W["TAG"]] = 0                          # a record never written
     rec[0, 1, 0, sp.W["T_BAR1_EXIT"]] = 0                  # a stamp out of order
     rec[0, 0, 2, sp.W["STAGES"]] = 39                      # the producer's walk disagrees
+    rec[1, 1, 2, sp.W["T_EARLY_END"]] = rec[1, 1, 2, sp.W["T_BAR1_EXIT"]] + 1  # early work late
     faults = sp.check_records(buf, 2)
-    assert len(faults) == 3
+    assert len(faults) == 4
     assert any("step 1 block 2 role 1: tag" in f for f in faults)
-    assert any("do not rise" in f for f in faults)
+    assert any("step 0 block 1 role 0: stamps" in f for f in faults)
+    assert any("step 1 block 1 role 2: stamps" in f for f in faults)
     assert any("ran [40, 40, 39] stages" in f for f in faults)
     assert sp.check_records(build(2, 3)[0], 1)[-1].startswith("window")
 

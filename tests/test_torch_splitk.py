@@ -175,6 +175,64 @@ def test_a_whole_last_wave_is_walked_round_robin(grid):
     assert plan.critical_stages(grid) == plan.round_robin_stages(grid) == 132 // grid * 48
 
 
+H100_SMEM_PER_BLOCK = 232_448    # shared memory a block may opt in to on the H100 (227 KiB)
+EARLY_CONFIGS = {name: p for name, p in WALK_CONFIGS.items()
+                 if selected_kernel(p) in ck.BY_STAGE} | {"toy": PRESETS["toy"]}
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("B", WALK_BATCHES)
+@pytest.mark.parametrize("name", sorted(EARLY_CONFIGS))
+def test_the_stages_expanded_inside_barrier_1(name, B, grid):
+    """Kernels 1 and 2's producer expands the weight tiles of its first unit's
+    first stages inside barrier 1 (``gen_rotation.cuh``'s ``expand_early``):
+    on a ring of 4 stages at every ring degree the presets use, as many as
+    the ring's depth less one (one below a full row tile), never more than
+    its first unit (the stages of its first piece in the digit polynomial of
+    that piece's first stage), at least one on a walk that is not empty,
+    none on an empty walk."""
+    p = EARLY_CONFIGS[name]
+    plan = ck.tile_plan(B, p, "blind_rotate_gen_full", grid)
+    ring = ck.gen_ring_stages(p.N, H100_SMEM_PER_BLOCK)
+    assert ring == ck.RING_MAX_STAGES
+    most = 1 if B < ck.BM_ROWS else ring - 1
+    for b in range(grid):
+        pieces = plan.pieces(b, grid)
+        early = plan.early_stages(b, grid, ring, B)
+        if not pieces:
+            assert early == 0
+            continue
+        _, first, end = pieces[0]
+        unit = sum(1 for s in range(first, end) if s // plan.depth == first // plan.depth)
+        assert 1 <= early <= most <= ring - 1 and early <= unit
+        assert early == min(most, unit)
+
+
+def test_the_card_cases_of_the_early_stages():
+    """The shapes at which tests/test_torch_cuda.py's walk test checks the
+    early stages on the H100's 132 SMs: one row at TOY (N = 128, a unit is
+    one stage), where most blocks' walk is empty and every other block
+    expands one stage; 128 rows at the cells' lattice, where some blocks'
+    first unit is shorter than the ring's depth less one; 8,192 rows at TOY,
+    where every first unit is; 8,192 rows at the cells' lattice, where every
+    block expands three.  The ring keeps its four stages beside the windows
+    and the table of units at every ring degree up to 2,048, and loses one
+    a byte short of them."""
+    toy = ck.tile_plan(1, PRESETS["toy"], "blind_rotate_gen_full", 132)
+    early = [toy.early_stages(b, 132, 4, 1) for b in range(132)]
+    assert early.count(0) > 66 and set(early) == {0, 1}
+    cell = ck.tile_plan(128, TFHE128, "blind_rotate_gen_full", 132)
+    early = [cell.early_stages(b, 132, 4, 128) for b in range(132)]
+    assert min(early) >= 1 and {1, 2, 3} <= set(early)
+    toy = ck.tile_plan(8192, PRESETS["toy"], "blind_rotate_gen_full", 132)
+    assert {toy.early_stages(b, 132, 4, 8192) for b in range(132)} == {1}
+    wide = ck.tile_plan(8192, TFHE128, "blind_rotate_gen_full", 132)
+    assert {wide.early_stages(b, 132, 4, 8192) for b in range(132)} == {3}
+    assert [ck.gen_ring_stages(N, H100_SMEM_PER_BLOCK) for N in (512, 1024, 2048)] == [4] * 3
+    four = 1024 + 4 * (ck.RING_STAGE_BYTES + 16) + 8 * 1104 + 16 + 128 * 32
+    assert ck.gen_ring_stages(1024, four) == 4 and ck.gen_ring_stages(1024, four - 1) == 3
+
+
 def test_an_authentication_saves_a_sixth_of_its_stages():
     """One authentication's calls at the benchmark's TFHE v1.x lattice on
     132 SMs: every launch ends in a partial wave, and the slowest block's
