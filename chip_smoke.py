@@ -9,7 +9,10 @@ phase printing one JSON line:
   2. build: every csrc/*.cu, one nvcc each, all at once; ptxas must report
      no register spill in any kernel;
   3. kernel: every kernel against its plain PyTorch twin, bit-equal, on
-     seeded random inputs at the main paths' shapes, with CUDA-event times of
+     seeded random inputs at the main paths' shapes (kernels 1 and 2 also at
+     NARROW_MAX_ROWS rows or fewer, where they take the narrow step; each
+     case's wrapper call makes one launch, and a narrow call exactly when
+     its rows are that few), with CUDA-event times of
      the kernel (calls in a row, and on the card alone), of the twin and (for
      the GEMM kernels) of torch._int_mm on the same product, the bound of
      each case, and for rotate_decompose the time of a device-to-device copy
@@ -93,7 +96,9 @@ MU = -(1 << 29) + 12345      # test-vector amplitude of the kernel cases
 # sweep's mean rows a bootstrap call (757 rounded up to a multiple of 8, as
 # torch._int_mm needs), 2048 the use_pallas_extprod chain's batch; 1 to
 # 1,152 rows the calls of an authentication at the benchmark's TFHE v1.x
-# lattice, whose steps end in a partial wave of work items.
+# lattice, whose steps end in a partial wave of work items; 1, 16 and 32
+# rows the narrow step's instances of 1, 2 and 4 row groups of 8
+# (cuda_kernels.NARROW_MAX_ROWS), at the lattices of the main paths.
 KERNEL_CASES = (
     ("cmux_step_gen", "peba1_128_t2_gen", 8192, 8),
     ("cmux_step_gen", "peba1_128_t2_gen", 1000, 8),
@@ -103,10 +108,18 @@ KERNEL_CASES = (
     ("cmux_step_gen", "ring_2048_gen", 8192, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 8192, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 184, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 1, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 16, 8),
+    ("cmux_step_gen", "peba1_128_t2_gen", 32, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 1, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 16, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 32, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 760, 8),
     ("blind_rotate_gen_full", "peba1_128_fast_genf", 184, 8),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 16, 8),
+    ("blind_rotate_gen_full", "peba1_128_fast_genf", 32, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 8192, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 1000, 8),
     ("blind_rotate_gen_full", "peba1_128_t2_genf", 760, 8),
@@ -116,6 +129,8 @@ KERNEL_CASES = (
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 512, 8),
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 128, 8),
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 16, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 32, 8),
     ("rotate_decompose", "peba1_128_t2", 8192, 1),
     ("rotate_decompose", "peba1_128_t2", 2048, 1),
     ("rotate_decompose", "peba1_128_t2", 1000, 1),
@@ -156,6 +171,14 @@ KERNELS = {
                           "peba1_tpu/ops/pallas_kernels.py:266"),
     "fused_blind_rotate": ("peba1_tpu_torch/csrc/fused_blind_rotate.cu",
                            "peba1_tpu/ops/pallas_kernels.py:168"),
+}
+# kernel -> the sources of its narrow step, which it takes at
+# cuda_kernels.NARROW_MAX_ROWS rows or fewer
+NARROW_SOURCES = {
+    "cmux_step_gen": ("peba1_tpu_torch/csrc/cmux_step_gen_narrow.cu",
+                      "peba1_tpu_torch/csrc/narrow_rotation.cuh"),
+    "blind_rotate_gen_full": ("peba1_tpu_torch/csrc/blind_rotate_gen_full_narrow.cu",
+                              "peba1_tpu_torch/csrc/narrow_rotation.cuh"),
 }
 # A kernel with no single PyTorch call that computes what it computes.
 NO_LIBRARY_CALL = {"rotate_decompose": "none: no single PyTorch call computes "
@@ -366,13 +389,16 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
         return fn(*a)
 
     want = call(plain)
+    launched, narrow = ck.launches[kernel], ck.narrow_calls.get(kernel, 0)
     got = call(wrapper)
     sync(device)
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     per = steps if kernel in STEP_KERNELS else 1
     out = {"kernel": kernel, "params": params_name, "B": B, "steps": steps,
            "unit": "ms per CMUX step" if kernel in STEP_KERNELS else "ms per call",
-           "mismatches": int((got != want).sum()), "max_abs_err": int(diff.max())}
+           "mismatches": int((got != want).sum()), "max_abs_err": int(diff.max()),
+           "launches": ck.launches[kernel] - launched,
+           "narrow_calls": ck.narrow_calls.get(kernel, 0) - narrow}
     if timed:
         bufs = list(args)
         if inplace is not None:
@@ -401,8 +427,14 @@ def kernel_case(kernel: str, params_name: str, B: int, steps: int, device,
 def phase_kernel(device, cases=KERNEL_CASES) -> dict:
     out = [kernel_case(kernel, name, B, steps, device, timed=torch_is_cuda(device))
            for kernel, name, B, steps in cases]
+    from peba1_tpu_torch.ops import cuda_kernels as ck
     for c in out:
         check(c["mismatches"] == 0, f"{c['kernel']} disagrees with its plain twin: {c}")
+        if torch_is_cuda(device):
+            narrow = c["kernel"] in ck.BY_STAGE and ck.narrow_step(c["B"])
+            check(c["launches"] == 1 and c["narrow_calls"] == narrow,
+                  f"{c['kernel']} at {c['B']} rows: {c['launches']} launches, "
+                  f"{c['narrow_calls']} narrow calls, want 1 and {int(narrow)}")
     return {"phase": "kernel", "cases": out}
 
 
@@ -449,20 +481,22 @@ def phase_gate(params, B: int, steps: int, device, seed: int = 0, label: str = "
     out = chain(ck, ct, steps)
     sync(device)
     dt = time.time() - t0
-    launches = dict(cuda_kernels.launches)
+    launches, narrow = dict(cuda_kernels.launches), dict(cuda_kernels.narrow_calls)
     got = gates.decrypt_bits(out, sk).cpu().numpy()
     frac = float((got == bits).mean())
     check(frac == 1.0, f"{label}: gate chain decrypts {frac} correct, want 1.0")
     if torch_is_cuda(device):
         check(launches == expected_launches(p, steps),
               f"{label}: launches {launches}, want {expected_launches(p, steps)}")
+        check(B <= cuda_kernels.NARROW_MAX_ROWS or not any(narrow.values()),
+              f"{label}: {narrow} narrow calls at {B} rows")
     key_gb = sum(t.nbytes for t in (ck.bk_tp, ck.bk_w, ck.bk_amat, ck.bk_conv,
                                      ck.ks_table_limbs, ck.bk) if t is not None) / 1e9
     return (sk, ck), {"phase": "gate", "params": label, "B": B,
                       "chain": steps, "keygen_seconds": t_keygen,
                       "seconds": dt, "bootstraps_per_s": steps * B / dt,
                       "batch_correct_frac": frac, "launches": launches,
-                      "key_gb": key_gb, "peak_gb": peak_gb(device)}
+                      "narrow_calls": narrow, "key_gb": key_gb, "peak_gb": peak_gb(device)}
 
 
 def phase_rotation_equal(keyset, B: int, device, label: str, seed: int = 0) -> dict:
@@ -580,7 +614,7 @@ def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
     res = server.authenticate(g_auth, enc_p, enc_t, enc_bound)
     sync(device)
     dt = time.time() - t0
-    launches = dict(cuda_kernels.launches)
+    launches, narrow = dict(cuda_kernels.launches), dict(cuda_kernels.narrow_calls)
     b = client.decrypt_word(res.enc_b)
     y = client.prove(res.enc_y)
     want_y = np.where(want_b == 1, res.r1, (-res.r0) % (1 << bitsize))
@@ -592,7 +626,7 @@ def phase_auth(keyset, nslots: int, bitsize: int, device, label: str,
            "is_match": verdict["is_match"].tolist(), "seconds": dt,
            "bootstraps": counter.bootstraps,
            "bootstrap_launches": server.be.launches, "launches": launches,
-           "peak_gb": peak_gb(device)}
+           "narrow_calls": narrow, "peak_gb": peak_gb(device)}
     check(np.array_equal(b, want_b), f"decisions {b.tolist()} != {want_b.tolist()}")
     check(np.array_equal(y, want_y), f"y {y.tolist()} != {want_y.tolist()}")
     if torch_is_cuda(device):
@@ -1030,7 +1064,8 @@ def phase_ntt(device, sizes=(1024, 2048), seed=0) -> dict:
 def kernels_line(kernel: dict, main: dict) -> dict:
     """One entry per kernel: its first (largest) case's numbers, the largest
     error over all its cases, and its launches on its main path (and on the
-    other paths that were read for it)."""
+    other paths that were read for it); for kernels 1 and 2 also the sources
+    of their narrow step and its cases."""
     rows = []
     for name, (source, replaces) in KERNELS.items():
         cases = [c for c in kernel["cases"] if c["kernel"] == name]
@@ -1049,6 +1084,11 @@ def kernels_line(kernel: dict, main: dict) -> dict:
                         if name in NO_LIBRARY_CALL else {}),
                      **({"copy_ms": first["copy_ms"], "copy_note": COPY_NOTE}
                         if "copy_ms" in first else {}),
+                     **({"narrow_sources": list(NARROW_SOURCES[name]),
+                         "narrow_cases": [{k: c[k] for k in ("params", "B", "device_ms",
+                                                             "max_abs_err")}
+                                          for c in cases if c["narrow_calls"]]}
+                        if name in NARROW_SOURCES else {}),
                      "case": {k: first[k] for k in ("params", "B", "steps", "unit")}})
     return {"kernels": rows}
 

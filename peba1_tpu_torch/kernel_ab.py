@@ -33,7 +33,9 @@ import sys
 # kernel 4 also at peba1_128_fast), kernel 5 at 8,192 and 1,000 rows, and
 # every smoke case of kernel 3; then the benchmark cells' lattices: kernel 2
 # at TFHE v1.x's (an authentication's calls of 1 to 512 rows and 8,192) and
-# kernel 1 at tfhers_bool_gen.  Labels are resolved by this tree's
+# kernel 1 at tfhers_bool_gen; last, the row counts of the narrow step's
+# crossover (kernel 2 at 2 to 64 rows, kernel 1 at 1, 8 and 64), where this
+# tree and its parent may take different paths.  Labels are resolved by this tree's
 # chip_smoke.params_of in both turns, so a parent that lacks a label runs
 # it all the same.
 CASES = (
@@ -74,6 +76,14 @@ CASES = (
     ("blind_rotate_gen_full", "peba1_tfhe128_genf", 1, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 8192, 8),
     ("cmux_step_gen", "tfhers_bool_gen", 128, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 2, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 4, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 8, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 32, 8),
+    ("blind_rotate_gen_full", "peba1_tfhe128_genf", 64, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 1, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 8, 8),
+    ("cmux_step_gen", "tfhers_bool_gen", 64, 8),
 )
 # (preset or label of `EXTPROD`, batches): whole bootstrap calls of the
 # paths that call a kernel once a CMUX step: w_streaming (cmux_step, W

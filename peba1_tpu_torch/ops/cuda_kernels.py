@@ -31,7 +31,10 @@ with ``nvcc`` for ``sm_90a`` at first use into its own shared library, all
 at once, under the package's ``build/`` directory (keyed by one hash of
 every source and the flags; git ignores it), and bound with ctypes.
 ``launches`` counts the CUDA kernel launches each wrapper makes: one per
-call for every wrapper.  Each wrapper call is the span
+call for every wrapper; ``narrow_calls`` those of `cmux_step_gen` and
+`blind_rotate_gen_full` that took the narrow step (``csrc/*_narrow.cu``, on
+``csrc/narrow_rotation.cuh``), which they launch at `NARROW_MAX_ROWS` rows
+or fewer.  Each wrapper call is the span
 ``peba1.kernel.<wrapper>`` in a profiler's trace (``utils/logging``).
 Inside `record_phases`, `cmux_step_gen` and `blind_rotate_gen_full` launch
 the instance of their kernel that records each step's phases
@@ -70,6 +73,10 @@ _ENTRIES = {
     "peba1_cmux_step_gen": ("cmux_step_gen", [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P]),
     "peba1_blind_rotate_gen_full": ("blind_rotate_gen_full",
                                     [_P] * 5 + [_I] * 6 + [_U, _I, _I, _U, _P]),
+    "peba1_cmux_step_gen_narrow": ("cmux_step_gen_narrow",
+                                   [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P]),
+    "peba1_blind_rotate_gen_full_narrow": ("blind_rotate_gen_full_narrow",
+                                           [_P] * 5 + [_I] * 6 + [_U, _I, _I, _U, _P]),
     "peba1_cmux_step_gen_phases": ("cmux_step_gen_phases",
                                    [_P] * 5 + [_I] * 6 + [_U, _I, _I, _P, _I, _I, _I, _P]),
     "peba1_blind_rotate_gen_full_phases": (
@@ -84,12 +91,15 @@ _ENTRIES = {
 
 launches = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0, "rotate_decompose": 0,
             "extprod_recombine": 0, "cmux_step": 0, "fused_blind_rotate": 0}
+# Of those, the launches of kernels 1 and 2 that took the narrow step.
+narrow_calls = {"cmux_step_gen": 0, "blind_rotate_gen_full": 0}
 _fns: dict = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, narrow_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -361,6 +371,82 @@ def _sm_count(device: torch.device) -> int:
     return sms
 
 
+# --- the narrow step of kernels 1 and 2 ------------------------------------
+
+# T: kernels 1 and 2 take the narrow step (``csrc/narrow_rotation.cuh``: the
+# Toeplitz weights built in registers as the MMA's A operand, the batch rows
+# its N operand, no ring) at this many rows or fewer: the largest of 8, 16,
+# 32 and 64 at which it was faster than the ring at every row count measured
+# up to it (PERF.md §6; at 64 rows kernel 1 tied).  Above it they take the
+# ring (``gen_rotation.cuh``).
+NARROW_MAX_ROWS = 32
+NARROW_WARPS = 12                  # NARROW_WARPS: the runners, every warp
+NARROW_WIN_TAIL = 80               # WIN_TAIL
+NARROW_SUM_STRIDE = BN_COLS + 4    # SUM_STRIDE
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowPlan:
+    """How the narrow step cuts a CMUX step's GEMM at `rows` rows on a grid
+    of `grid` blocks, the mirror of ``narrow_rotation.cuh``.  A span is
+    (output tile of BN_COLS coefficients of polynomial o, digit polynomial
+    g, BK_BYTES contraction bytes kt); a step's spans, ordered (tile, g,
+    kt), are cut into `grid` contiguous ranges, the first (spans mod grid)
+    one longer.  A block takes every limb of its spans: its items, (span,
+    limb m), are listed by (tile, m, span) and cut into contiguous ranges,
+    one for each of its NARROW_WARPS warps.  The cut is the same at every
+    row count."""
+
+    N: int
+    k: int
+    l: int
+    limbs: tuple        # limbs of each output polynomial (TfheParams.limb_plan)
+    rows: int
+    grid: int
+
+    @classmethod
+    def of(cls, B: int, params: TfheParams, grid: int) -> "NarrowPlan":
+        p = params
+        return cls(p.N, p.k, p.l, tuple(p.limb_plan), B, grid)
+
+    @property
+    def per_tile(self) -> int:
+        """Spans of one output tile: G digit polynomials of N/128 spans."""
+        return (self.k + 1) * self.l * self.N // BK_BYTES
+
+    @property
+    def spans(self) -> int:
+        return (self.k + 1) * self.N // BN_COLS * self.per_tile
+
+    def spans_of(self, block: int) -> range:
+        q, rem = divmod(self.spans, self.grid)
+        lo = block * q + min(block, rem)
+        return range(lo, lo + q + (block < rem))
+
+    def items(self, block: int) -> "list[tuple[int, int, int, int, int]]":
+        """(o, first coefficient, m, g, kt) of each item of `block`, in the
+        order of its list."""
+        r, P, KT, TJ = self.spans_of(block), self.per_tile, self.N // BK_BYTES, self.N // BN_COLS
+        out = []
+        for tile in range(r.start // P, -(-r.stop // P)):
+            o = tile // TJ
+            spans = range(max(tile * P, r.start), min((tile + 1) * P, r.stop))
+            out += [(o, tile % TJ * BN_COLS, m, s % P // KT, s % KT)
+                    for m in range(self.limbs[o]) for s in spans]
+        return out
+
+    def warp_items(self, block: int, warp: int) -> list:
+        """The items that warp `warp` of `block` runs."""
+        items = self.items(block)
+        n = len(items)
+        return items[n * warp // NARROW_WARPS:n * (warp + 1) // NARROW_WARPS]
+
+
+def narrow_step(B: int) -> bool:
+    """Whether kernels 1 and 2 take the narrow step at B rows."""
+    return 0 < B <= NARROW_MAX_ROWS
+
+
 # --- the phases of a step: the recording instance of kernels 1 and 2 -------
 
 # The record layout of ``csrc/gen_rotation.cuh`` (REC_*): a header, then for
@@ -401,11 +487,17 @@ class PhaseRecorder:
         self.seen = 0
         self.launches: "list[PhaseRecords]" = []
 
+    def pass_over(self) -> int:
+        """Number the next launch of kernels 1 and 2; returns its number.  A
+        narrow launch is numbered and records nothing."""
+        self.seen += 1
+        return self.seen - 1
+
     def window(self, kernel: str, B: int, n_steps: int, device: torch.device) -> tuple:
         """The record arguments of this launch's ``_phases`` entry (buffer,
         blocks it has room for, first step, count), or () if it records
         nothing."""
-        call, self.seen = self.seen, self.seen + 1
+        call = self.pass_over()
         first, stop = max(self.steps.start, 0), min(self.steps.stop, n_steps)
         if stop <= first or (self.calls is not None and call not in self.calls):
             return ()
@@ -424,8 +516,9 @@ def record_phases(steps: range, calls: "range | None" = None):
     """Inside, `cmux_step_gen` and `blind_rotate_gen_full` launch their
     kernel's recording instance (``peba1_<kernel>_phases``) and keep its
     records of `steps` (see `PhaseRecorder`); yields the recorder.  The
-    recording instance computes the same acc.  Outside, and for every other
-    kernel, nothing changes."""
+    recording instance computes the same acc.  A call that takes the narrow
+    step (`narrow_step`) launches the narrow instance and records nothing.
+    Outside, and for every other kernel, nothing changes."""
     global _recorder
     outer, _recorder = _recorder, PhaseRecorder(steps, calls)
     try:
@@ -444,19 +537,27 @@ def _launch_rotation(kernel: str, acc: torch.Tensor, amt: torch.Tensor, key: tor
     """Launch ``peba1_<kernel>``, a kernel on the whole-rotation skeleton, on
     acc's device: acc (B, (k+1)*N), amt, the key, a (B, G*N) digits scratch
     and a zeroed grid barrier, then B, `steps`, the step sizes
-    (`_step_args`) and the kernel's own `tail` arguments.  Inside
-    `record_phases`, kernels 1 and 2 launch through ``peba1_<kernel>_phases``
-    with the recorder's arguments after `tail`."""
+    (`_step_args`) and the kernel's own `tail` arguments.  Kernels 1 and 2
+    launch ``peba1_<kernel>_narrow`` where `narrow_step` says so (counted in
+    `narrow_calls` too); otherwise, inside `record_phases`, through
+    ``peba1_<kernel>_phases`` with the recorder's arguments after `tail`."""
     B, device = acc.shape[0], acc.device
     digits = torch.empty((B, (p.k + 1) * p.l * p.N), dtype=torch.int8, device=device)
     grid_bar = torch.zeros(1, dtype=torch.int32, device=device)
     entry, rec = "peba1_" + kernel, ()
-    if _recorder is not None and kernel in BY_STAGE:
+    narrow = kernel in BY_STAGE and narrow_step(B)
+    if narrow:
+        entry += "_narrow"
+        if _recorder is not None:
+            _recorder.pass_over()
+    elif _recorder is not None and kernel in BY_STAGE:
         rec = _recorder.window(kernel, B, steps, device)
         entry += "_phases" if rec else ""
     _launch(entry, device, acc.data_ptr(), amt.data_ptr(), key.data_ptr(),
             digits.data_ptr(), grid_bar.data_ptr(), B, steps, *_step_args(p), *tail, *rec)
     launches[kernel] += 1
+    if narrow:
+        narrow_calls[kernel] += 1
 
 
 # --- cmux_step_gen ---------------------------------------------------------

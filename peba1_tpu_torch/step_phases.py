@@ -15,7 +15,11 @@ one on the same inputs (their acc must be bit-equal) and times both on the
 card alone (``chip_smoke.device_ms``).  Prints the card's name and power
 limit, then one JSON line a shape (the mean of its steps' lines, the
 blocks' GEMM phases by walk, the periods by place in the call); writes
-every line to `--out`.
+every line to `--out`.  A shape of `cuda_kernels.NARROW_MAX_ROWS` rows or
+fewer takes the narrow step (``csrc/narrow_rotation.cuh``), which has no
+recording instance: its line gives its time a step from CUDA events and
+says that it has no phase records.  The authentication's line counts the
+calls that took the narrow step against its calls of that many rows.
 
 A step of kernels 1 and 2 (``csrc/gen_rotation.cuh``): a digit phase, grid
 barrier 1, a GEMM phase (the producer warpgroup fills a ring of stages that
@@ -82,8 +86,9 @@ WORDS = ("T_START", "T_DIGITS", "T_BAR1_ARRIVE", "T_BAR1_SEEN", "T_BAR1_EXIT", "
 W = {name: i for i, name in enumerate(WORDS)}
 CONSUMERS, PRODUCER = (0, 1), 2        # roles: consumer warpgroups 0 and 1, the producer
 
-K2_PARAMS, K2_ROWS, K2_STEPS = "peba1_tfhe128_genf", (1, 8, 16, 64, 128, 256, 512, 8192), 630
-K1_PARAMS, K1_ROWS, K1_STEPS = "tfhers_bool_gen", (128, 8192), 722
+K2_PARAMS, K2_STEPS = "peba1_tfhe128_genf", 630
+K2_ROWS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 8192)
+K1_PARAMS, K1_ROWS, K1_STEPS = "tfhers_bool_gen", (1, 8, 64, 128, 8192), 722
 WINDOW = range(64, 96)                 # the steps recorded of a whole call
 AUTH_CALLS = range(200, 400)           # the benchmark's traced slice of auth1_tfhe128
 SEED = 0                               # inputs and keys of every shape
@@ -279,6 +284,13 @@ def _shape(smoke, kernel: str, params: str, B: int, steps: int, window: range,
     p = smoke.params_of(params)
     args, inplace, *_ = smoke._inputs(kernel, p, B, steps, device, seed)
     wrapper = getattr(ck, kernel)
+    if ck.narrow_step(B):
+        a = list(args)
+        ms = smoke.device_ms(lambda: wrapper(*a), 3 if B * steps > 500_000 else 10) / steps
+        return {"kernel": kernel, "params": params, "B": B, "steps": steps, "narrow": True,
+                "default_device_ms": ms, "step_us": ms * 1e3,
+                "records": "none: the narrow step (csrc/narrow_rotation.cuh) has no "
+                           "recording instance; its time a step is from CUDA events"}
 
     def call(record: "range | None"):
         a = list(args)
@@ -375,6 +387,7 @@ def _auth(smoke, device, seed: int) -> dict:
         ck.blind_rotate_gen_full = timed
         try:
             g_auth = torch.Generator(device=device).manual_seed(seed + 2)
+            ck.reset_launches()
             if label == "phases":
                 with ck.record_phases(WINDOW, calls=AUTH_CALLS) as rec:
                     res = server.authenticate(g_auth, *enc)
@@ -386,7 +399,12 @@ def _auth(smoke, device, seed: int) -> dict:
         b = int(np.asarray(client.decrypt_word(res.enc_b)).reshape(-1)[0])
         if b != want_b:
             raise SystemExit(f"auth ({label}): decision {b}, want {want_b}")
+        narrow_rows = sum(ck.narrow_step(B) for B in rows)
+        if ck.narrow_calls["blind_rotate_gen_full"] != narrow_rows:
+            raise SystemExit(f"auth ({label}): {ck.narrow_calls} narrow calls, want "
+                             f"{narrow_rows} (its calls of {ck.NARROW_MAX_ROWS} rows or fewer)")
         runs[label] = {"calls": len(rows), "b": b,
+                       "narrow_calls": ck.narrow_calls["blind_rotate_gen_full"],
                        "slice_kernel_s": sum(s.elapsed_time(e) for s, e in events) * 1e-3,
                        "slice_rows": rows[AUTH_CALLS.start:AUTH_CALLS.stop]}
     totals = {k: 0.0 for k in PARTS}
@@ -425,8 +443,9 @@ def main() -> None:
     card = smoke.card_label(device)
     print(card, flush=True)
     record = {"card": card, "ptxas": {stem: _ptxas(stem) for stem in (
-                  "blind_rotate_gen_full", "blind_rotate_gen_full_phases", "cmux_step_gen",
-                  "cmux_step_gen_phases")},
+                  "blind_rotate_gen_full", "blind_rotate_gen_full_phases",
+                  "blind_rotate_gen_full_narrow", "cmux_step_gen", "cmux_step_gen_phases",
+                  "cmux_step_gen_narrow")},
               "shapes": []}
     print(json.dumps({"ptxas": record["ptxas"]}), flush=True)
     shapes = ([("blind_rotate_gen_full", K2_PARAMS, B, s, range(0, 8) if s == 8 else WINDOW)

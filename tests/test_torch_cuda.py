@@ -465,10 +465,12 @@ WALK_CASES = ([(name, B) for name in ("t2_gen", "tfhe128_genf", "tfhers_gen")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,B", WALK_CASES)
-def test_the_walk_by_stage_matches_plain(cuda_device, name, B):
+def test_the_walk_by_stage_matches_plain(cuda_device, name, B, monkeypatch):
     """Kernels 1 and 2 walk each step's last partial wave of work items by
     stage: three steps against the plain twin at an authentication's call
-    sizes and at 8,192 rows, one launch.  Their producer expands its first
+    sizes and at 8,192 rows, one launch, on the ring at every row count
+    (the narrow step, which calls of NARROW_MAX_ROWS rows or fewer take,
+    turned off; test_the_narrow_step_matches_plain).  Their producer expands its first
     unit's first stages inside barrier 1 (at most three, one below 128
     rows): at one row at TOY most blocks' walk is empty and the others
     expand one stage; at 128 rows at tfhe128_genf some blocks' first unit
@@ -476,6 +478,7 @@ def test_the_walk_by_stage_matches_plain(cuda_device, name, B):
     at 8,192 rows at tfhe128_genf every block expands three
     (tests/test_torch_splitk.py's test_the_card_cases_of_the_early_stages)."""
     kernel, p = WALKED[name]
+    monkeypatch.setattr(ck, "narrow_step", lambda *args: False)
     steps = 3
     acc, amt, vv = random_step_inputs(p, B, steps + 1, 20, cuda_device)
     vv = vv[:steps].contiguous()
@@ -487,3 +490,34 @@ def test_the_walk_by_stage_matches_plain(cuda_device, name, B):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert ck.launches[kernel] == before + 1
+
+
+# The narrow step's rows: one, the edges of its row groups of 8 (its
+# instances of 1, 2 and 4 groups), the row count T (NARROW_MAX_ROWS) and
+# T + 1, which takes the ring, as do 33 and 63.
+NARROW_ROWS = sorted({1, 2, 3, 7, 8, 9, 16, 17, 33, 63, ck.NARROW_MAX_ROWS,
+                      ck.NARROW_MAX_ROWS + 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", NARROW_ROWS)
+@pytest.mark.parametrize("name", ["tfhe128_genf", "tfhers_gen", "t2_gen"])
+def test_the_narrow_step_matches_plain(cuda_device, name, B):
+    """Kernels 1 and 2 at T rows or fewer build the Toeplitz weights in
+    registers (csrc/narrow_rotation.cuh): 8 steps against the plain twin
+    bit for bit, kernel 2 at the cells' lattice and kernel 1 at
+    tfhers_bool_gen and at the default t2_gen, one launch, counted in
+    narrow_calls at T rows or fewer and not above."""
+    kernel, p = WALKED[name]
+    steps = 8
+    acc, amt, vv = random_step_inputs(p, B, steps + 1, 21, cuda_device)
+    vv = vv[:steps].contiguous()
+    args = ((acc, amt[1:].contiguous(), vv) if kernel == "cmux_step_gen"
+            else (amt, vv, -(1 << 29) + 7))
+    want = call(getattr(ck, kernel + "_plain"), args, p)
+    before, narrow = ck.launches[kernel], ck.narrow_calls[kernel]
+    got = call(getattr(ck, kernel), args, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.launches[kernel] == before + 1
+    assert ck.narrow_calls[kernel] - narrow == (B <= ck.NARROW_MAX_ROWS)
