@@ -4,8 +4,12 @@
   * CipherBackend -- real bootstrapped gates; the gates of one circuit level
     run as ONE batched bootstrap (`level`);
   * ClearBackend -- plaintext 0/1 int32 tensors, the same circuits;
-  * CountingBackend -- ClearBackend that counts the bootstraps the cipher
-    backend would run.
+  * CountingBackend -- ClearBackend that counts the bootstrap calls and
+    bootstraps the cipher backend would run;
+  * Tally -- any backend, its bootstrap calls and their bootstraps counted
+    into a dict from the operands' shapes alone.
+
+Both count by one rule, `call_bootstraps`.
 """
 
 from __future__ import annotations
@@ -148,29 +152,69 @@ class ClearBackend:
         return torch.cat([self._t(x) for x in xs], dim=axis)
 
 
+def call_bootstraps(per_element: int, operands) -> int:
+    """The bootstraps one batched bootstrap call runs: `per_element` (a
+    lincomb gate 1, a MUX 2, a fused level its number of gates) times the
+    broadcast of its operands' batch shapes."""
+    shape = torch.broadcast_shapes(*(tuple(x.shape) for x in operands))
+    return per_element * math.prod(shape)
+
+
 class CountingBackend(ClearBackend):
-    """ClearBackend that also counts the gate bootstraps the CipherBackend
-    would execute for the same circuit run: a lincomb gate is ONE bootstrap
-    per broadcast element, MUX is TWO, a fused level is len(ops) times the
-    broadcast elements."""
+    """ClearBackend that also counts the bootstrap calls (`launches`) and
+    the gate bootstraps the CipherBackend would execute for the same
+    circuit run, by `call_bootstraps`."""
 
     def __init__(self, device="cpu"):
         super().__init__(device)
         self.bootstraps = 0
 
+    def _count(self, per_element, operands) -> None:
+        self.launches += 1
+        self.bootstraps += call_bootstraps(per_element, [self._t(x) for x in operands])
+
     def gate(self, name, a, b):
-        shape = torch.broadcast_shapes(self._t(a).shape, self._t(b).shape)
-        self.bootstraps += math.prod(shape)
+        self._count(1, (a, b))
         return super().gate(name, a, b)
 
     def MUX(self, a, b, c):
-        shape = torch.broadcast_shapes(*(self._t(x).shape for x in (a, b, c)))
-        self.bootstraps += 2 * math.prod(shape)
+        self._count(2, (a, b, c))
         return super().MUX(a, b, c)
 
     def level(self, ops):
-        shape = torch.broadcast_shapes(
-            *[self._t(x).shape for _, a, b in ops for x in (a, b)])
-        self.bootstraps += len(ops) * math.prod(shape)
+        self._count(len(ops), [x for _, a, b in ops for x in (a, b)])
         # The BASE gate method: self.gate would count the level twice.
         return [ClearBackend.gate(self, name, a, b) for name, a, b in ops]
+
+
+class Tally:
+    """`be` with its bootstrap calls counted into `counts`: each gate, MUX
+    or level adds 1 to ``counts["calls"]`` and its `call_bootstraps` to
+    ``counts["bootstraps"]``.  The counts come from the operands' shapes
+    alone: no device work, no synchronize.  Everything else passes through
+    to `be`."""
+
+    def __init__(self, be, counts: dict):
+        self.be = be
+        self.counts = counts
+
+    def __getattr__(self, name):
+        if name in _GATE_LIN:
+            return lambda a, b: self.gate(name, a, b)
+        return getattr(self.be, name)
+
+    def _add(self, per_element: int, operands) -> None:
+        self.counts["calls"] += 1
+        self.counts["bootstraps"] += call_bootstraps(per_element, operands)
+
+    def gate(self, name, a, b):
+        self._add(1, (a, b))
+        return self.be.gate(name, a, b)
+
+    def MUX(self, a, b, c):
+        self._add(2, (a, b, c))
+        return self.be.MUX(a, b, c)
+
+    def level(self, ops):
+        self._add(len(ops), [x for _, a, b in ops for x in (a, b)])
+        return self.be.level(ops)

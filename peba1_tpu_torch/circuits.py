@@ -19,12 +19,26 @@ Conformance notes (reference quirks preserved):
 Deviations: slot accumulations use a log-depth balanced tree instead of a
 serial chain -- addition mod 2^W is associative, so result bits are
 identical -- and Function_f's accumulator is zero-initialized.
+
+``argmin_counts`` counts the bootstrap calls and bootstraps of every
+`argmin_tree` since `reset_argmin_counts`, from the operands' shapes
+(``backends.Tally``); no other circuit counts.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .backends import Tally
+
+# The tournament's bootstrap calls and bootstraps (a MUX is two).
+argmin_counts = {"calls": 0, "bootstraps": 0}
+
+
+def reset_argmin_counts() -> None:
+    for name in argmin_counts:
+        argmin_counts[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -227,8 +241,10 @@ def argmin_tree(be, vals, idxs, nbits: int | None = None):
     vals: (M, ..., W) bit-words; idxs: (M, ..., I) bit-words.
     Returns (min_val (..., nbits), min_idx (..., I)).  Ties pick the LOWER
     index: the compare bit is 0 on equality, selecting the left (earlier)
-    element, and each round pairs neighbors in order.
+    element, and each round pairs neighbors in order.  Its calls are
+    counted in `argmin_counts`.
     """
+    be = Tally(be, argmin_counts)
     if nbits is None:
         nbits = word_bits(vals)
     ibits = word_bits(idxs)

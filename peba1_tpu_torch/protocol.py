@@ -22,6 +22,7 @@ from .backends import CipherBackend
 from .keys import CloudKey, SecretKey, keygen
 from .params import PEBA1_PROTOCOL, ProtocolParams, TfheParams
 from .utils.bits import bits_to_int, int_to_bits
+from .utils.logging import span
 
 
 @dataclasses.dataclass
@@ -156,12 +157,13 @@ class Server:
         n_templates = templates_ct.shape[0]
         probe_b = _broadcast_lead(probe_ct, n_templates, 2)
         be = self.be
-        dists = cc.euclidean(be, probe_b, templates_ct, self.proto.bitsize,
-                             self.proto.max_bitsize)
+        with span("identify.distance"):
+            dists = cc.euclidean(be, probe_b, templates_ct, self.proto.bitsize,
+                                 self.proto.max_bitsize)
         ibits = max(1, (n_templates - 1).bit_length())
         idx_words = cc.const_word(be, np.arange(n_templates), ibits, (n_templates,))
-        return cc.argmin_tree(be, dists, idx_words)
-
+        with span("identify.argmin"):
+            return cc.argmin_tree(be, dists, idx_words)
 
 
 def make_system(gen: torch.Generator, params: TfheParams, device, client_id: int = 7,

@@ -23,6 +23,10 @@ nothing and never synchronizes.  The spans a bootstrap call opens:
   * ``peba1.kernel.<wrapper>``: each call of a wrapper of
     ``ops/cuda_kernels`` (checks, workspaces, launch; the plain twin on a
     CPU tensor).
+
+``Server.identify_argmin`` opens two around its bootstrap calls:
+``peba1.identify.distance`` (the distances, ``circuits.euclidean``) and
+``peba1.identify.argmin`` (the tournament, ``circuits.argmin_tree``).
 """
 
 from __future__ import annotations
